@@ -1,0 +1,358 @@
+"""PaDT core model on PyTorch (port of `padt_tpu/models/padt.py`): the
+visual prototype projection, the extended (text + per-sample VRT)
+vocabulary, generation, and the `vl_decode` glue to the perception decoder.
+
+Same conventions as the JAX package: per-sample prototype tables, VRT token
+id == vocab_size + local merged-patch id, hidden states captured per
+generated token. `generate` is an eager Python loop that checks once per
+step whether every row has finished.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from padt_tpu.config import PaDTConfig
+
+from ..ops.norms import layer_norm
+from . import language
+from .decoder import decoder_forward, init_decoder_params
+from .params import normal, zeros
+from .vision import init_vision_params, vision_forward
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+def init_padt_params(cfg: PaDTConfig, generator: torch.Generator, device, dtype=torch.bfloat16) -> Dict[str, Any]:
+    """Random parameter tree with the JAX tree's keys, shapes and dtypes
+    (`padt_tpu.models.padt.init_padt_params`); values come from `generator`."""
+    params: Dict[str, Any] = {
+        "vision": init_vision_params(cfg.vision, generator, device, dtype),
+        "text": language.init_text_params(cfg.text, generator, device, dtype),
+        "decoder": init_decoder_params(cfg.decoder, generator, device, dtype),
+    }
+    if cfg.use_visual_prototype_projection:
+        d, r = cfg.text.hidden_size, cfg.prototype_proj_rank
+        params["proto"] = {
+            "ln_w": zeros((d,), device, dtype),  # ZeroInitLayerNorm: weight and bias zero
+            "ln_b": zeros((d,), device, dtype),
+            "down_w": normal(generator, (d, r), device, dtype),
+            "up_w": normal(generator, (r, d), device, dtype),
+        }
+    return params
+
+
+class _Tree(torch.nn.Module):
+    """Registers a nested dict of tensors as buffers / submodules, so the
+    tree moves with `.to()` and appears in `state_dict()` under dotted keys."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, _Tree(v))
+            else:
+                self.register_buffer(k, v)
+
+    def as_dict(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = dict(self.named_buffers(recurse=False))
+        for k, m in self.named_children():
+            out[k] = m.as_dict()
+        return out
+
+
+class PaDTModel(torch.nn.Module):
+    """Holds the parameter tree (same keys and layouts as the JAX tree) and
+    exposes `generate` and `vl_decode`."""
+
+    def __init__(self, cfg: PaDTConfig, params: Dict[str, Any]):
+        super().__init__()
+        self.cfg = cfg
+        self.tree = _Tree(params)
+
+    @property
+    def params(self) -> Dict[str, Any]:
+        return self.tree.as_dict()
+
+    @torch.no_grad()
+    def generate(self, batch, max_new_tokens: int, rope_deltas, **kw) -> "GenerateOutput":
+        return generate(self.params, self.cfg, batch, max_new_tokens, rope_deltas, **kw)
+
+    @torch.no_grad()
+    def vl_decode(self, vrt_feats, vrt_counts, obj_valid, obj_sample, art, **kw):
+        return vl_decode(self.params, self.cfg, vrt_feats, vrt_counts, obj_valid, obj_sample, art, **kw)
+
+
+def image_prototypes(params, cfg: PaDTConfig, merged: torch.Tensor) -> torch.Tensor:
+    """merged (B, M, D) raster order -> prototypes (B, M, D)."""
+    if not cfg.use_visual_prototype_projection:
+        return merged
+    p = params["proto"]
+    x = layer_norm(merged, p["ln_w"], p["ln_b"], eps=1e-5)
+    return x + (x @ p["down_w"]) @ p["up_w"]
+
+
+# ---------------------------------------------------------------------------
+# Extended vocabulary
+# ---------------------------------------------------------------------------
+
+def extended_embed(params, cfg: PaDTConfig, input_ids, proto, merged=None):
+    """Token embeddings over the extended vocab: ids >= vocab_size read the
+    sample's prototype table; with `merged`, image/video pad runs are
+    overwritten by the raster-order merged embeddings."""
+    v = cfg.text.vocab_size
+    embed = params["text"]["embed"]
+    ids = input_ids.long()
+    is_vrt = ids >= v
+    text_e = embed[ids.clamp(0, v - 1)]
+    local = (ids - v).clamp(0, proto.shape[1] - 1)
+    vrt_e = torch.gather(proto, 1, local[:, :, None].expand(-1, -1, proto.shape[-1]))
+    out = torch.where(is_vrt[:, :, None], vrt_e.to(text_e.dtype), text_e)
+    if merged is not None:
+        is_img = (ids == cfg.image_token_id) | (ids == cfg.video_token_id)
+        slot = (torch.cumsum(is_img.long(), dim=1) - 1).clamp(0, merged.shape[1] - 1)
+        img_e = torch.gather(merged, 1, slot[:, :, None].expand(-1, -1, merged.shape[-1]))
+        out = torch.where(is_img[:, :, None], img_e.to(out.dtype), out)
+    return out
+
+
+def _f32_logits(hidden: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """hidden (B, L, D) @ w(V, D)^T with f32 output. A bf16 product keeps
+    f32 accumulation and f32 output (JAX's preferred_element_type=f32), so
+    near-ties in the argmax are not decided by bf16 rounding."""
+    b, l, d = hidden.shape
+    h2 = hidden.reshape(b * l, d)
+    if hidden.dtype == torch.float32:
+        out = h2 @ w.t()
+    elif hidden.is_cuda:
+        out = torch.mm(h2, w.t(), out_dtype=torch.float32)
+    else:
+        out = h2.float() @ w.float().t()
+    return out.reshape(b, l, -1)
+
+
+def extended_logits_pair(params, cfg: PaDTConfig, hidden, proto, num_merged):
+    """((B, L, V) text logits, (B, L, M) VRT logits) in f32; VRT slots at or
+    past a sample's num_merged are NEG_INF."""
+    w = params["text"]["embed"] if cfg.text.tie_word_embeddings else params["text"]["lm_head"]
+    lt = _f32_logits(hidden, w)
+    lv = torch.einsum("bld,bmd->blm", hidden.float(), proto.float())
+    slot_ok = torch.arange(proto.shape[1], device=proto.device)[None, :] < num_merged[:, None]
+    lv = torch.where(slot_ok[:, None, :], lv, NEG_INF)
+    return lt, lv
+
+
+def extended_logits(params, cfg: PaDTConfig, hidden, proto, num_merged):
+    """(B, L, V + M) concatenated extended logits."""
+    return torch.cat(extended_logits_pair(params, cfg, hidden, proto, num_merged), dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Vision
+# ---------------------------------------------------------------------------
+
+class VisionArtifacts(NamedTuple):
+    """Vision-side tensors the perception decoder consumes."""
+
+    merged: torch.Tensor  # (B, M, D_llm) raster order
+    proto: torch.Tensor  # (B, M, D_llm) raster order
+    high_res: torch.Tensor  # (B, S, D_vis) window order
+    pe_cos: torch.Tensor  # (B, S, head_dim_vis) window order
+    pe_sin: torch.Tensor
+    num_merged: torch.Tensor  # (B,)
+    num_patches: torch.Tensor  # (B,)
+    grid_thw: torch.Tensor  # (B, 3)
+
+
+_VISION_BATCH_KEYS = (
+    "pixel_patches", "pixel_patches_u8", "window_index", "inv_window_index",
+    "seg_win", "seg_full", "hpos", "wpos", "num_merged", "num_patches", "grid_thw", "pack_index",
+)
+
+
+def _pixel_u8_lut(dtype=torch.float32, device=None) -> torch.Tensor:
+    """(3, 256) per-channel table lut[c, v] = (f32(v)/255 - mean[c]) / std[c],
+    built with the numpy expression the host pipeline uses."""
+    from padt_tpu.preprocess.vision_process import OPENAI_CLIP_MEAN, OPENAI_CLIP_STD
+
+    v = np.arange(256, dtype=np.float32) / np.float32(255.0)
+    mean = np.asarray(OPENAI_CLIP_MEAN, np.float32)[:, None]
+    std = np.asarray(OPENAI_CLIP_STD, np.float32)[:, None]
+    return torch.as_tensor((v[None, :] - mean) / std, device=device).to(dtype)
+
+
+def _expand_pixels_u8(cfg: PaDTConfig, u8, num_patches, dtype=torch.bfloat16):
+    """Compact uint8 rows (B, S, C*P*P) -> normalized pixel_patches
+    (B, S, C*tP*P*P): LUT gather, temporal duplication (an image's two
+    temporal copies are the same frame), zeroed padding rows."""
+    vc = cfg.vision
+    if vc.in_channels != 3 or vc.temporal_patch_size != 2:
+        raise ValueError("the uint8 pixel format is defined for 3 channels and temporal patch 2")
+    b, s, d = u8.shape
+    c = vc.in_channels
+    pp = d // c
+    lut = _pixel_u8_lut(dtype, u8.device)
+    x = lut[torch.arange(c, device=u8.device)[None, None, :, None], u8.reshape(b, s, c, pp).long()]
+    x = x[:, :, :, None, :].expand(b, s, c, vc.temporal_patch_size, pp).reshape(b, s, 2 * d)
+    valid = (torch.arange(s, device=u8.device)[None, :] < num_patches[:, None])[:, :, None]
+    return torch.where(valid, x, torch.zeros((), dtype=dtype, device=u8.device))
+
+
+def _run_vision_once(params, cfg: PaDTConfig, batch) -> VisionArtifacts:
+    pix = batch.get("pixel_patches")
+    if pix is None:
+        pix = _expand_pixels_u8(cfg, batch["pixel_patches_u8"], batch["num_patches"])
+    merged, high_res, (cos, sin) = vision_forward(
+        params["vision"], cfg.vision, pix,
+        batch["window_index"], batch["inv_window_index"], batch["seg_win"], batch["seg_full"],
+        batch["hpos"], batch["wpos"], pack_index=batch.get("pack_index"),
+    )
+    return VisionArtifacts(
+        merged=merged, proto=image_prototypes(params, cfg, merged), high_res=high_res,
+        pe_cos=cos, pe_sin=sin, num_merged=batch["num_merged"],
+        num_patches=batch["num_patches"], grid_thw=batch["grid_thw"],
+    )
+
+
+def run_vision(params, cfg: PaDTConfig, batch: Dict[str, torch.Tensor]) -> VisionArtifacts:
+    """Vision tower + prototypes; with `cfg.vision_chunk_size` set (and
+    dividing B), the tower runs over batch chunks to bound transients."""
+    pix_key = "pixel_patches" if "pixel_patches" in batch else "pixel_patches_u8"
+    b = batch[pix_key].shape[0]
+    cs = cfg.vision_chunk_size
+    if cs and b > cs and b % cs == 0:
+        parts = [
+            _run_vision_once(params, cfg, {k: batch[k][i : i + cs] for k in _VISION_BATCH_KEYS if k in batch})
+            for i in range(0, b, cs)
+        ]
+        return VisionArtifacts(*(torch.cat(xs) for xs in zip(*parts)))
+    return _run_vision_once(params, cfg, batch)
+
+
+# ---------------------------------------------------------------------------
+# Generation
+# ---------------------------------------------------------------------------
+
+def sample_token(
+    logits: torch.Tensor,  # (B, Vext) f32
+    generator: Optional[torch.Generator] = None,
+    do_sample: bool = False,
+    temperature: float = 1.0,
+    top_k: Optional[int] = None,
+    top_p: Optional[float] = None,
+) -> torch.Tensor:
+    """Greedy (first maximum) or temperature/top-k/top-p sampling."""
+    if not do_sample:
+        return torch.argmax(logits, dim=-1)
+    logits = logits / temperature
+    if top_k is not None and top_k > 0:
+        kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
+        logits = torch.where(logits < kth, NEG_INF, logits)
+    if top_p is not None and top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_logits, dim=-1)
+        keep = torch.cumsum(probs, dim=-1) - probs < top_p  # always keeps the argmax
+        inf = torch.full_like(sorted_logits, float("inf"))
+        threshold = torch.where(keep, sorted_logits, inf).amin(dim=-1, keepdim=True)
+        logits = torch.where(logits < threshold, NEG_INF, logits)
+    return torch.multinomial(torch.softmax(logits, dim=-1), 1, generator=generator)[:, 0]
+
+
+class GenerateOutput(NamedTuple):
+    tokens: torch.Tensor  # (B, T) generated tokens, pad after EOS
+    hidden: torch.Tensor  # (B, T, D) final-norm hidden that produced each token
+    num_generated: torch.Tensor  # (B,) tokens up to and including EOS
+    artifacts: VisionArtifacts
+
+
+@torch.no_grad()
+def generate(
+    params,
+    cfg: PaDTConfig,
+    batch: Dict[str, torch.Tensor],
+    max_new_tokens: int,
+    rope_deltas: torch.Tensor,  # (B,)
+    do_sample: bool = False,
+    temperature: float = 1.0,
+    top_k: Optional[int] = None,
+    top_p: Optional[float] = None,
+    generator: Optional[torch.Generator] = None,
+    eos_token_id: Optional[int] = None,
+    kv_cache_dtype: str = "bf16",
+    prefill_batch_chunk: Optional[int] = None,
+) -> GenerateOutput:
+    """Vision + prefill + a decode loop, with the JAX semantics: a finished
+    row emits pad_token_id, num_generated counts the EOS, hidden[:, t] is the
+    post-final-norm hidden state that produced token t, and the loop stops
+    once every row has finished (one host check per step)."""
+    if kv_cache_dtype not in ("bf16", "int8"):
+        raise ValueError(f"unknown kv_cache_dtype {kv_cache_dtype!r}")
+    eos = cfg.eos_token_id if eos_token_id is None else eos_token_id
+    tcfg = cfg.text
+    b, l = batch["input_ids"].shape
+    dev = batch["input_ids"].device
+    dtype = params["text"]["embed"].dtype
+
+    art = run_vision(params, cfg, batch)
+    embeds = extended_embed(params, cfg, batch["input_ids"], art.proto, art.merged)
+    valid = batch["attention_mask"].bool()
+    hidden, cache = language.prefill(
+        params["text"], tcfg, embeds, batch["position_ids"], valid, l + max_new_tokens,
+        kv_dtype=kv_cache_dtype, batch_chunk=prefill_batch_chunk,
+    )
+    cur = hidden[:, -1:, :]  # predicts the first new token
+
+    tokens = torch.full((b, max_new_tokens), cfg.pad_token_id, dtype=torch.int64, device=dev)
+    hidden_buf = torch.zeros((b, max_new_tokens, tcfg.hidden_size), dtype=dtype, device=dev)
+    finished = torch.zeros((b,), dtype=torch.bool, device=dev)
+    num_gen = torch.zeros((b,), dtype=torch.int32, device=dev)
+    deltas = rope_deltas.to(dev).long()
+    for step in range(max_new_tokens):
+        logits = extended_logits(params, cfg, cur, art.proto, art.num_merged)[:, 0]
+        tok = sample_token(logits, generator, do_sample, temperature, top_k, top_p)
+        tok = torch.where(finished, cfg.pad_token_id, tok)
+        tokens[:, step] = tok
+        hidden_buf[:, step] = cur[:, 0]
+        num_gen += (~finished).int()
+        finished |= tok == eos
+        if step + 1 == max_new_tokens or bool(finished.all()):
+            break
+        emb = extended_embed(params, cfg, tok[:, None], art.proto)
+        pos = (l + step + deltas)[None, :, None].expand(3, b, 1)
+        cur, cache = language.decode_step(params["text"], tcfg, emb, pos, cache)
+    return GenerateOutput(tokens=tokens, hidden=hidden_buf, num_generated=num_gen, artifacts=art)
+
+
+# ---------------------------------------------------------------------------
+# vl_decode glue
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def vl_decode(
+    params,
+    cfg: PaDTConfig,
+    vrt_feats,  # (N, K_max, D_llm) parser-gathered VRT hidden states
+    vrt_counts,  # (N,)
+    obj_valid,  # (N,) bool
+    obj_sample,  # (N,)
+    art: VisionArtifacts,
+    canvas_hw: Optional[Tuple[int, int]] = None,
+    compute_mask: bool = True,
+):
+    """Per-object VRT hidden groups -> perception decoder outputs."""
+    if canvas_hw is None:
+        side = int(cfg.max_image_patches**0.5) + 1
+        canvas_hw = (side, side)
+    return decoder_forward(
+        params["decoder"], cfg.decoder, vrt_feats, vrt_counts, obj_valid, obj_sample,
+        art.proto, art.high_res, art.pe_cos, art.pe_sin, art.num_merged, art.num_patches,
+        art.grid_thw, canvas_hw, compute_mask=compute_mask and cfg.decoder.use_mask_head,
+    )

@@ -1,0 +1,101 @@
+"""Attention ops (port of `padt_tpu/ops/attention.py`).
+
+The vision and prefill attention go through the Hopper kernels of
+`cuda_attention` (their wrappers take the plain twins for CPU tensors):
+  - `segment_attention`, `causal_attention`, `fused_vision_attention_qkv` ->
+    H2 `segment_flash_fwd` (after H1 `rope_qk` for the fused vision qkv);
+  - `window_attention_qkv` -> H1 `rope_qk` + H3 `window_slot_attn`.
+`decode_attention` and `masked_cross_attention` are plain PyTorch, as the
+JAX package leaves them to XLA.
+
+Rows with no valid key: the kernels and their twins return 0, as the TPU
+kernels do. The JAX XLA branches return a finite uniform average there
+(NEG_INF fill); downstream masks drop those rows either way.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .cuda_attention import WINDOW, rope_qk, segment_flash_fwd, window_slot_attn
+
+NEG_INF = -1e30
+
+
+def _scale(d: int, scale: Optional[float], rope_dim: Optional[int]) -> float:
+    if rope_dim not in (None, d):
+        raise ValueError(f"rope_dim {rope_dim} != head dim {d}: partial rotary is not supported")
+    return (1.0 / (d**0.5)) if scale is None else scale
+
+
+def segment_attention(q, k, v, seg, scale: Optional[float] = None):
+    """Block-diagonal attention over segment ids (-1 = pad); (B, S, H, D)."""
+    return segment_flash_fwd(q, k, v, seg, seg, False, _scale(q.shape[-1], scale, None))
+
+
+def _rope_split_qkv(qkv, cos, sin, num_heads: int):
+    """Fused (B, S, 3*H*D) qkv -> rotated q, k and the v view (each (B, S, H, D));
+    the rope kernel reads q/k straight out of qkv, v is never copied."""
+    b, s, dh3 = qkv.shape
+    d = dh3 // (3 * num_heads)
+    hd = num_heads * d
+    q_rot, k_rot = rope_qk(qkv[..., :hd], qkv[..., hd : 2 * hd], cos, sin, num_heads, num_heads)
+    split = lambda t: t.unflatten(-1, (num_heads, d))
+    return split(q_rot), split(k_rot), split(qkv[..., 2 * hd :])
+
+
+def fused_vision_attention_qkv(
+    qkv, cos, sin, seg, num_heads: int,
+    scale: Optional[float] = None, rope_dim: Optional[int] = None,
+):
+    """Full (segment) vision attention on the fused pre-rope qkv -> (B, S, H*D)."""
+    b, s, _ = qkv.shape
+    q, k, v = _rope_split_qkv(qkv, cos, sin, num_heads)
+    out = segment_flash_fwd(q, k, v, seg, seg, False, _scale(q.shape[-1], scale, rope_dim))
+    return out.reshape(b, s, -1)
+
+
+def window_attention_qkv(
+    qkv, cos, sin, seg, num_heads: int, win: int = WINDOW,
+    scale: Optional[float] = None, rope_dim: Optional[int] = None,
+):
+    """Windowed vision attention on the 64-token slot layout -> (B, S, H*D)."""
+    if win != WINDOW:
+        raise ValueError(f"window slots are {WINDOW} tokens, got {win}")
+    b, s, _ = qkv.shape
+    q, k, v = _rope_split_qkv(qkv, cos, sin, num_heads)
+    out = window_slot_attn(q, k, v, seg, _scale(q.shape[-1], scale, rope_dim))
+    return out.reshape(b, s, -1)
+
+
+def causal_attention(q, k, v, valid):
+    """Causal GQA self-attention for the text prefill; `valid` (B, L) bool
+    marks the non-pad (left-padded) positions."""
+    seg = torch.where(valid, 0, -1).to(torch.int32)
+    return segment_flash_fwd(q, k, v, seg, seg, True, 1.0 / (q.shape[-1] ** 0.5))
+
+
+def decode_attention(q, k_cache, v_cache, valid):
+    """One query step over the cache. q (B, 1, H, D), caches (B, C, Hkv, D),
+    valid (B, C) bool. Grouped-query form, no repeated kv."""
+    b, _, h, d = q.shape
+    hkv = k_cache.shape[2]
+    qg = q.reshape(b, hkv, h // hkv, d).float()
+    scores = torch.einsum("bkgd,bckd->bkgc", qg, k_cache.float()) * (1.0 / (d**0.5))
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgc,bckd->bkgd", probs.to(v_cache.dtype), v_cache)
+    return out.reshape(b, 1, h, d)
+
+
+def masked_cross_attention(q, k, v, q_valid, k_valid):
+    """Dense cross-attention with per-side validity masks (the perception
+    decoder); q (B, Lq, H, D), k/v (B, Lk, H, D)."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    mask = q_valid[:, None, :, None] & k_valid[:, None, None, :]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)

@@ -1,0 +1,260 @@
+"""The port's three Hopper kernels, their wrappers, and their plain twins.
+
+| wrapper             | CUDA source             | replaces (padt_tpu/ops/pallas_attention.py) |
+|---------------------|-------------------------|---------------------------------------------|
+| `rope_qk`           | csrc/rope_qk.cu         | `_unpack_rope_kernel`, `_rope_pair_kernel`  |
+| `segment_flash_fwd` | csrc/segment_flash.cu   | `_vis_fwd_kernel`, `_fwd_kernel`            |
+| `window_slot_attn`  | csrc/window_attn.cu     | `_vis_win_kernel`                           |
+
+Each wrapper takes the plain PyTorch twin beside it (`*_plain`) for tensors
+on the CPU and only there: on a CUDA tensor it launches its kernel or raises.
+It checks device, dtype, shape and strides, allocates the output with
+`torch.empty`, launches on the current stream, raises on a CUDA error code,
+and adds one to `launch_counts[name]` after the launch.
+
+The kernels take bf16 activations (fp32 rope tables, int32 segment ids).
+The twins compute in fp32 and return the input's dtype. A query row with no
+valid key returns 0 in both.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ._build import check, load_library
+from .rope import apply_rotary
+
+WINDOW = 64  # tokens per vision window slot (vision_geom.py window_slots)
+HEAD_DIMS = (16, 32, 64, 80, 128)  # head dims the attention kernels are built for
+
+launch_counts = {"rope_qk": 0, "segment_flash_fwd": 0, "window_slot_attn": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _on_cpu(t: torch.Tensor, name: str) -> bool:
+    """True for a CPU tensor (take the twin), False for a CUDA tensor (launch
+    the kernel); anything else raises."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return False
+
+
+def _require(name: str, ok: bool, what: str) -> None:
+    if not ok:
+        raise ValueError(f"{name}: {what}")
+
+
+def _same_device(name: str, dev: torch.device, *ts) -> None:
+    for t in ts:
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name}: tensors on different devices ({t.device} vs {dev})")
+
+
+def _vec_ok(t: torch.Tensor) -> bool:
+    """16-byte loads: aligned base, unit last stride, other strides multiples of 8."""
+    return t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:-1])
+
+
+# ---------------------------------------------------------------------------
+# H1 rope_qk
+# ---------------------------------------------------------------------------
+
+def rope_qk_plain(q, k, cos, sin, num_q_heads: int, num_k_heads: int):
+    b, s, _ = q.shape
+    hd = cos.shape[-1]
+    c, sn = cos[:, :, None, :], sin[:, :, None, :]
+    qr = apply_rotary(q.reshape(b, s, num_q_heads, hd), c, sn).reshape(b, s, num_q_heads * hd)
+    if k is None:
+        return qr, None
+    kr = apply_rotary(k.reshape(b, s, num_k_heads, hd), c, sn).reshape(b, s, num_k_heads * hd)
+    return qr, kr
+
+
+def _row_stride(t: torch.Tensor) -> Optional[int]:
+    """Element stride between consecutive (batch, seq) rows of a (B, S, W)
+    view with unit last stride, or None when rows are not evenly spaced."""
+    b, s, _ = t.shape
+    if t.stride(2) != 1:
+        return None
+    rs = t.stride(1) if s > 1 else t.stride(0)
+    return rs if (b == 1 or t.stride(0) == s * rs) else None
+
+
+def rope_qk(
+    q: torch.Tensor,  # (B, S, Hq*hd); may be a column view of a wider buffer
+    k: Optional[torch.Tensor],  # (B, S, Hk*hd) likewise, or None when Hk == 0
+    cos: torch.Tensor,  # (B, S, hd) fp32
+    sin: torch.Tensor,
+    num_q_heads: int,
+    num_k_heads: int,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """fp32 rotate-half rope on the q heads and k heads -> contiguous
+    (q_rot (B, S, Hq*hd), k_rot (B, S, Hk*hd) or None)."""
+    name = "rope_qk"
+    if _on_cpu(q, name):
+        return rope_qk_plain(q, k, cos, sin, num_q_heads, num_k_heads)
+    b, s, _ = q.shape
+    hd = cos.shape[-1]
+    _same_device(name, q.device, k, cos, sin)
+    _require(name, q.dtype == torch.bfloat16 and (k is None or k.dtype == torch.bfloat16), "q/k must be bf16")
+    _require(name, cos.dtype == torch.float32 and sin.dtype == torch.float32, "cos/sin must be fp32")
+    _require(name, cos.shape == (b, s, hd) and sin.shape == (b, s, hd), f"cos/sin shape {tuple(cos.shape)}")
+    _require(name, cos.is_contiguous() and sin.is_contiguous(), "cos/sin must be contiguous")
+    _require(name, hd % 2 == 0 and q.shape[2] == num_q_heads * hd, f"q shape {tuple(q.shape)}")
+    _require(name, (k is None) == (num_k_heads == 0), "k is None iff num_k_heads == 0")
+    q_rs = _row_stride(q)
+    _require(name, q_rs is not None, f"q rows not evenly strided {q.stride()}")
+    k_rs = 0
+    if k is not None:
+        _require(name, k.shape == (b, s, num_k_heads * hd), f"k shape {tuple(k.shape)}")
+        k_rs = _row_stride(k)
+        _require(name, k_rs is not None, f"k rows not evenly strided {k.stride()}")
+    q_out = torch.empty((b, s, num_q_heads * hd), dtype=q.dtype, device=q.device)
+    k_out = (
+        torch.empty((b, s, num_k_heads * hd), dtype=q.dtype, device=q.device) if k is not None else None
+    )
+    lib = load_library()
+    rc = lib.padt_rope_qk(
+        q.data_ptr(), q_rs, None if k is None else k.data_ptr(), k_rs,
+        cos.data_ptr(), sin.data_ptr(), q_out.data_ptr(),
+        None if k_out is None else k_out.data_ptr(),
+        b * s, num_q_heads, num_k_heads, hd, _stream(q),
+    )
+    check(lib, name, rc)
+    launch_counts[name] += 1
+    return q_out, k_out
+
+
+# ---------------------------------------------------------------------------
+# H2 segment_flash_fwd
+# ---------------------------------------------------------------------------
+
+def _masked_softmax_pv(scores: torch.Tensor, mask: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax over the valid keys of each row, then @ v (all fp32); rows
+    with no valid key give 0."""
+    scores = scores.masked_fill(~mask, float("-inf"))
+    m = scores.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(scores - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.matmul(p, v) / torch.where(l > 0, l, torch.ones_like(l))
+    return torch.where(l > 0, out, torch.zeros_like(out))
+
+
+def segment_flash_plain(q, k, v, q_seg, k_seg, causal: bool, scale: float):
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    qf = q.float().permute(0, 2, 1, 3)
+    kf = k.float().permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
+    vf = v.float().permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
+    scores = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    mask = (q_seg[:, None, :, None] == k_seg[:, None, None, :]) & (k_seg[:, None, None, :] >= 0)
+    if causal:
+        mask = mask & torch.ones((sq, sk), dtype=torch.bool, device=q.device).tril()
+    out = _masked_softmax_pv(scores, mask, vf)
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def segment_flash_fwd(
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Sk, Hkv, hd)
+    v: torch.Tensor,
+    q_seg: torch.Tensor,  # (B, Sq) int32; -1 = pad
+    k_seg: torch.Tensor,  # (B, Sk) int32
+    causal: bool,
+    scale: float,
+) -> torch.Tensor:
+    """Segment-id attention: key c visible to query r iff the segments match
+    and k_seg >= 0 (and r >= c when causal); GQA head map h // (H/Hkv).
+    Returns contiguous (B, Sq, H, hd)."""
+    name = "segment_flash_fwd"
+    if _on_cpu(q, name):
+        return segment_flash_plain(q, k, v, q_seg, k_seg, causal, scale)
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    _same_device(name, q.device, k, v, q_seg, k_seg)
+    _require(name, all(t.dtype == torch.bfloat16 for t in (q, k, v)), "q/k/v must be bf16")
+    _require(name, hd in HEAD_DIMS, f"head dim {hd} not in {HEAD_DIMS}")
+    _require(name, k.shape == (b, sk, hkv, hd) and v.shape == k.shape, f"k/v shapes {tuple(k.shape)} {tuple(v.shape)}")
+    _require(name, hkv > 0 and h % hkv == 0, f"{h} query heads over {hkv} kv heads")
+    _require(name, all(_vec_ok(t) for t in (q, k, v)), "q/k/v need unit last stride, 16-byte aligned data and strides that are multiples of 8")
+    for seg, n in ((q_seg, sq), (k_seg, sk)):
+        _require(name, seg.dtype == torch.int32 and seg.shape == (b, n) and seg.is_contiguous(), "segment ids must be contiguous int32 (B, S)")
+    _require(name, not causal or sq == sk, "causal attention needs Sq == Sk")
+    out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
+    lib = load_library()
+    rc = lib.padt_segment_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg.data_ptr(), k_seg.data_ptr(), out.data_ptr(),
+        b, sq, sk, h, hkv, hd,
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        int(causal), float(scale), _stream(q),
+    )
+    check(lib, name, rc)
+    launch_counts[name] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# H3 window_slot_attn
+# ---------------------------------------------------------------------------
+
+def window_slot_plain(q, k, v, seg, scale: float):
+    b, s, h, d = q.shape
+    nw = s // WINDOW
+    qw = q.float().reshape(b, nw, WINDOW, h, d).permute(0, 1, 3, 2, 4)  # (B, W, H, win, d)
+    kw = k.float().reshape(b, nw, WINDOW, h, d).permute(0, 1, 3, 2, 4)
+    vw = v.float().reshape(b, nw, WINDOW, h, d).permute(0, 1, 3, 2, 4)
+    scores = torch.matmul(qw, kw.transpose(-1, -2)) * scale
+    kvalid = (seg >= 0).reshape(b, nw, 1, 1, WINDOW)
+    out = _masked_softmax_pv(scores, kvalid, vw)  # (B, W, H, win, d)
+    return out.permute(0, 1, 3, 2, 4).reshape(b, s, h, d).to(q.dtype)
+
+
+def window_slot_attn(
+    q: torch.Tensor,  # (B, S, H, hd), S a multiple of 64
+    k: torch.Tensor,
+    v: torch.Tensor,
+    seg: torch.Tensor,  # (B, S) int32; -1 = pad
+    scale: float,
+) -> torch.Tensor:
+    """Attention inside each 64-token window slot, keys masked by seg >= 0.
+    Returns contiguous (B, S, H, hd)."""
+    name = "window_slot_attn"
+    if _on_cpu(q, name):
+        return window_slot_plain(q, k, v, seg, scale)
+    b, s, h, hd = q.shape
+    _same_device(name, q.device, k, v, seg)
+    _require(name, all(t.dtype == torch.bfloat16 for t in (q, k, v)), "q/k/v must be bf16")
+    _require(name, hd in HEAD_DIMS, f"head dim {hd} not in {HEAD_DIMS}")
+    _require(name, s % WINDOW == 0, f"S={s} is not a multiple of {WINDOW}")
+    _require(name, k.shape == q.shape and v.shape == q.shape, "q/k/v shapes differ")
+    _require(name, all(_vec_ok(t) for t in (q, k, v)), "q/k/v need unit last stride, 16-byte aligned data and strides that are multiples of 8")
+    _require(name, seg.dtype == torch.int32 and seg.shape == (b, s) and seg.is_contiguous(), "seg must be contiguous int32 (B, S)")
+    out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
+    lib = load_library()
+    rc = lib.padt_window_slot_attn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), out.data_ptr(),
+        b, s, h, hd,
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        float(scale), _stream(q),
+    )
+    check(lib, name, rc)
+    launch_counts[name] += 1
+    return out

@@ -1,0 +1,80 @@
+"""PyTorch port `InferenceEngine.run_batch` vs the JAX engine on the CPU
+(padt_tiny, float32): completions and pixel boxes equal, scores within 1e-4,
+masks equal except where the upsampled logit is within 1e-4 of 0.
+
+The JAX engine runs with compact_pixels=False: its run_batch keys its
+compile cache on `pixel_patches`, which the compact uint8 format does not
+carry. The port accepts both formats."""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from test_torch_common import seeded_image, tiny_params, tiny_processor
+from padt_tpu.eval import rle as rle_codec
+from padt_tpu.eval.harness import InferenceEngine as JaxEngine
+from padt_tpu_torch.convert.from_jax import params_from_numpy
+from padt_tpu_torch.eval import harness as TH
+
+
+def test_upsample_matches_cv2_linear():
+    cv2 = pytest.importorskip("cv2")
+    r = np.random.RandomState(0)
+    for h, w, H, W in [(32, 48, 100, 157), (64, 64, 30, 20), (8, 12, 8, 12)]:
+        logit = r.randn(h, w).astype(np.float32)
+        ref = cv2.resize(logit, (W, H), interpolation=cv2.INTER_LINEAR)
+        # cv2 rounds its interpolation weights; 1e-4 is the mask test's margin
+        np.testing.assert_allclose(TH.upsample_logits(logit, W, H), ref, atol=1e-4)
+
+
+def test_run_batch_matches_jax_engine(monkeypatch):
+    cfg, jp, _ = tiny_params(4)
+    # a non-zero prototype LayerNorm (it is zero-initialized) makes VRT
+    # logits dominate, so the completions carry objects for the decoder
+    jp["proto"]["ln_w"] = jnp.ones_like(jp["proto"]["ln_w"])
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    grids = [(1, 8, 12), (1, 12, 16)]
+    images = [seeded_image(g, i, u8=False) for i, g in enumerate(grids)]
+    sizes = [(181, 117), (224, 170)]
+    prompts = ['find "x"', 'find "the dog"']
+
+    jres = JaxEngine(jp, cfg, tiny_processor(cfg), max_new_tokens=6, canvas_hw=(17, 17), compact_pixels=False).run_batch(
+        prompts, images, image_sizes=sizes
+    )
+    ups = []
+    real = TH.upsample_logits
+    monkeypatch.setattr(TH, "upsample_logits", lambda *a: ups.append(real(*a)) or ups[-1])
+    tres = TH.InferenceEngine(tp, cfg, tiny_processor(cfg), max_new_tokens=6, canvas_hw=(17, 17)).run_batch(
+        prompts, images, image_sizes=sizes
+    )
+    assert sum(len(r.objects) for r in jres) > 0
+    assert len(ups) == sum(len(r.objects) for r in tres)
+    oi = 0
+    for jr, tr in zip(jres, tres):
+        assert tr.completion == jr.completion
+        assert len(tr.objects) == len(jr.objects)
+        for jo, to in zip(jr.objects, tr.objects):
+            assert (to.label, to.vrt_string, to.bbox_xywh_px) == (jo.label, jo.vrt_string, jo.bbox_xywh_px)
+            assert abs(to.score - jo.score) <= 1e-4
+            jm, tm = rle_codec.decode(jo.mask_rle), rle_codec.decode(to.mask_rle)
+            assert jm.shape == tm.shape
+            assert np.all((jm == tm) | (np.abs(ups[oi]) < 1e-4))
+            oi += 1
+
+
+def test_raw_images_follow_the_engine_wire_format_and_leave_the_processor_alone():
+    import PIL.Image
+
+    cfg, _, tp = tiny_params(4)
+    proc = tiny_processor(cfg)
+    img = PIL.Image.fromarray(np.random.RandomState(0).randint(0, 255, (64, 96, 3), np.uint8))
+    out = {}
+    for compact in (True, False):
+        engine = TH.InferenceEngine(tp, cfg, proc, max_new_tokens=4, canvas_hw=(17, 17), compact_pixels=compact)
+        out[compact] = engine.run_batch(['find "x"'], [img])
+        assert proc.u8_pixels is False
+    # both wire formats expand to the same bf16 pixels, so the same completion
+    assert out[True][0].completion == out[False][0].completion

@@ -1,0 +1,67 @@
+"""PyTorch port text stack vs `padt_tpu.models.language` on the CPU
+(padt_tiny, float32, tolerance 1e-5 relative to the reference's magnitude):
+prefill then three decode steps, hidden states on valid rows and the KV
+cache on live slots."""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from test_torch_common import close, tiny_params
+from padt_tpu.models import language as JL
+from padt_tpu_torch.models import language as TL
+
+T = lambda a: torch.tensor(np.asarray(a))
+
+
+def _inputs(cfg, b=3, l=24, seed=0):
+    r = np.random.RandomState(seed)
+    embeds = r.randn(b, l, cfg.text.hidden_size).astype(np.float32)
+    valid = np.ones((b, l), bool)
+    valid[0, :7] = False  # left padding
+    valid[2, :1] = False
+    pos = np.cumsum(valid, axis=1).astype(np.int32) - 1
+    pos3 = np.broadcast_to(np.maximum(pos, 0)[None], (3, b, l)).copy()
+    pos3[1, :, 5:9] += 2  # an image-like span: h/w streams differ from t
+    return embeds, valid, pos3
+
+
+def test_prefill_and_decode_match_jax():
+    cfg, jp, tp = tiny_params(1)
+    tc = cfg.text
+    embeds, valid, pos3 = _inputs(cfg)
+    b, l = valid.shape
+    cap = l + 3
+    jh, jcache = JL.prefill(jp["text"], tc, jnp.asarray(embeds), jnp.asarray(pos3), jnp.asarray(valid), cap)
+    th, tcache = TL.prefill(tp["text"], tc, T(embeds), T(pos3), T(valid), cap)
+    close(th, np.asarray(jh), rows=valid)
+    close(tcache.k[:, :, :l].permute(1, 2, 0, 3, 4), np.asarray(jcache.k)[:, :, :l].transpose(1, 2, 0, 3, 4), rows=valid)
+    close(tcache.v[:, :, :l].permute(1, 2, 0, 3, 4), np.asarray(jcache.v)[:, :, :l].transpose(1, 2, 0, 3, 4), rows=valid)
+
+    r = np.random.RandomState(5)
+    last = pos3[:, :, -1]
+    for step in range(3):
+        emb = r.randn(b, 1, tc.hidden_size).astype(np.float32)
+        p = (last + 1 + step)[:, :, None].astype(np.int32)
+        jh, jcache = JL.decode_step(jp["text"], tc, jnp.asarray(emb), jnp.asarray(p), jcache)
+        th, tcache = TL.decode_step(tp["text"], tc, T(emb), T(p), tcache)
+        close(th, np.asarray(jh))
+        assert tcache.length == int(jcache.length) == l + step + 1
+        np.testing.assert_array_equal(tcache.valid.numpy(), np.asarray(jcache.valid))
+    live = np.asarray(jcache.valid)
+    close(tcache.k.permute(1, 2, 0, 3, 4), np.asarray(jcache.k).transpose(1, 2, 0, 3, 4), rows=live)
+    close(tcache.v.permute(1, 2, 0, 3, 4), np.asarray(jcache.v).transpose(1, 2, 0, 3, 4), rows=live)
+
+
+def test_prefill_batch_chunk_is_exact_and_int8_is_the_next_slice():
+    cfg, _, tp = tiny_params(1)
+    embeds, valid, pos3 = _inputs(cfg, b=4)
+    args = (tp["text"], cfg.text, T(embeds), T(pos3), T(valid), 30)
+    h1, c1 = TL.prefill(*args)
+    h2, c2 = TL.prefill(*args, batch_chunk=2)
+    close(h2, h1.numpy())
+    close(c2.k, c1.k.numpy())
+    with pytest.raises(NotImplementedError, match="next slice"):
+        TL.prefill(*args, kv_dtype="int8")
