@@ -4,20 +4,29 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `padt_tpu_torch/csrc` (nvcc, sm_90a,
-into build/padt_tpu_torch/), then:
+one process per source, into build/padt_tpu_torch/), then:
   1. prints the card (nvidia-smi name and power limit, torch device name);
   2. holds each kernel against its plain PyTorch twin at the shapes the main
-     path gives it (bf16, max abs error over all rows, tolerance 2e-2:
-     bf16 output rounding plus a different order of sums), and times both
-     with CUDA events;
-  3. runs PaDT-3B REC inference through `InferenceEngine.run_batch` (random
+     paths give it (bf16 attention outputs: max abs error over all rows,
+     tolerance 2e-2, bf16 output rounding plus a different order of sums;
+     the int8 row store: byte-identical), and times both with CUDA events;
+  3. checks the vision tower, bf16 prefill, int8 prefill, one int8 suffix
+     pass and one int8 decode step of a tiny model on the card against the
+     plain float32 CPU path;
+  4. runs PaDT-3B REC inference through `InferenceEngine.run_batch` (random
      weights from a seeded generator, 4 prompts over 644px-class images of
-     46x46 patches, 32 new tokens) with the launch counters reset just
-     before and read just after, runs `vl_decode` on 4 forced objects,
-     checks every output is finite and of the expected shape, checks the
-     vision tower and prefill on a tiny model against the plain float32 CPU
-     path, and times vision, prefill and decode;
-  4. prints the kernels' JSON line, then the result line
+     46x46 patches, 32 new tokens, bf16 KV) with the launch counters reset
+     just before and read just after, runs `vl_decode` on 4 forced objects,
+     checks every output is finite and of the expected shape, and times
+     vision, prefill and decode;
+  5. serves PaDT-3B through the continuous-batching engine (int8 KV, packed
+     weights, 8 slots): `run_stream` of 16 REC requests, `ServeEngine.run`
+     with budgets of 8..32 tokens, `run_stream(share_prefix=True)` of 8
+     prompts over 2 images, and a speculative=4 engine run, with the launch
+     counters reset just before and read just after; checks the outputs and
+     the launch floors, and prints wall, device prefill / decode seconds,
+     decode tok/s and slot utilization;
+  6. prints the kernels' JSON line, then the result line
      {"ok": true, "device": {...}} last.
 Any failure raises, and the script exits non-zero without the result line.
 It needs CUDA; it imports nothing of JAX.
@@ -41,6 +50,11 @@ PATCHES = 2304
 PROMPT_LEN = 640
 NEW_TOKENS = 32
 BATCH = 4
+SERVE_SLOTS = 8  # decode slots of the serve pool
+SERVE_REQUESTS = 16
+SERVE_BUCKET = 4  # requests per admission (prefill) bucket
+KV_SLOTS, KV_CAP = 16, 768  # int8 kernel lines: a 16-slot pool, capacity 640 + 32 rounded to 128
+SUFFIX_K = 32  # rows of a suffix pass (H5's kq, H6's widest store)
 
 
 def log(*a):
@@ -82,6 +96,7 @@ def phase_kernels(dev, card):
     from padt_tpu.models.vision_geom import vision_geometry
     from padt_tpu_torch.ops import _build
     from padt_tpu_torch.ops import cuda_attention as C
+    from padt_tpu_torch.ops import cuda_kv as K
     from padt_tpu_torch.ops.rope import mrope_cos_sin, vision_rope_cos_sin
 
     t0 = time.perf_counter()
@@ -106,34 +121,86 @@ def phase_kernels(dev, card):
     vqr, vkr = C.rope_qk(vq, vk, vcos, vsin, h, h)
     u = lambda t: t.unflatten(-1, (h, hd))
 
+    # the int8 serve path: 36 layers of a 16-slot pool, capacity 768, each
+    # slot with its own live length; H4 reads one layer with one fresh column,
+    # H5 the same with kq = 32 (a suffix pass), H6 lands every layer's rows.
+    # H4 / H5 (and their twins) walk the layers in turn, one per call, as a
+    # decode step does: the 226 MB cache cycles through the 50 MB L2, so each
+    # call reads its layer from HBM, as on the main path
+    import itertools
+
+    from padt_tpu.config import padt_3b
+
+    nl, slots, cap, gq = padt_3b().text.num_hidden_layers, KV_SLOTS, KV_CAP, th // tkv
+    i8 = lambda *shape: torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+    sc = lambda *shape: torch.exp(torch.randn(shape, generator=g, device=dev) * 0.4 - 4.0)
+    kv = lambda *lead: (i8(*lead, thd), sc(*lead), i8(*lead, thd), sc(*lead))  # (k8, ks, v8, vs)
+    cache = kv(nl, slots, tkv, cap)
+    lens = torch.randint(PROMPT_LEN - 100, cap - SUFFIX_K, (slots,), generator=g, device=dev)
+    valid = torch.arange(cap, device=dev)[None, :] < lens[:, None]
+    valid[:, :40] = False  # left padding
+    fresh1, fresh32 = kv(slots, tkv, 1), kv(slots, tkv, SUFFIX_K)
+    qd, qv = rnd(slots, tkv, gq, thd), rnd(slots, tkv, gq * SUFFIX_K, thd)
+    rows1, rows32 = kv(nl, slots, tkv, 1), kv(nl, slots, tkv, SUFFIX_K)
+    pos = lens.int()
+    one = torch.ones(slots, dtype=torch.int32, device=dev)
+    n32 = torch.randint(0, SUFFIX_K + 1, (slots,), generator=g, device=dev, dtype=torch.int32)
+    n32[:2] = torch.tensor([0, SUFFIX_K], dtype=torch.int32, device=dev)
+    kbuf, pbuf = [t.clone() for t in cache], [t.clone() for t in cache]  # the stores write in place
+
+    def walk(fn, *head, tail=()):
+        """fn(*head, layer, *tail) over layers 0, 1, ...: the kernel's and the
+        twin's first calls (the comparison) both read layer 0."""
+        nxt = itertools.cycle(range(nl)).__next__
+        return lambda: fn(*head, nxt(), *tail)
+
+    def store(fn, buf, rows, n):
+        return lambda: (fn(*buf, *rows, pos, n), buf)[1]
+
     cases = [
-        ("rope_qk", "vision 2x2304x(16+16)x80, q/k views of the fused qkv", "padt_tpu/ops/pallas_attention.py:700",
+        ("rope_qk", "vision 2x2304x(16+16)x80, q/k views of the fused qkv", "padt_tpu/ops/pallas_attention.py:700", TOL,
          lambda: C.rope_qk(vq, vk, vcos, vsin, h, h), lambda: C.rope_qk_plain(vq, vk, vcos, vsin, h, h)),
-        ("rope_qk", "text 2x640x(16+2)x128", "padt_tpu/ops/pallas_attention.py:574",
+        ("rope_qk", "text 2x640x(16+2)x128", "padt_tpu/ops/pallas_attention.py:574", TOL,
          lambda: C.rope_qk(tq, tk.flatten(2), tcos, tsin, th, tkv),
          lambda: C.rope_qk_plain(tq, tk.flatten(2), tcos, tsin, th, tkv)),
-        ("segment_flash_fwd", "text prefill causal GQA 2x640, 16/2 heads x128, left pad 100", "padt_tpu/ops/pallas_attention.py:65",
+        ("segment_flash_fwd", "text prefill causal GQA 2x640, 16/2 heads x128, left pad 100", "padt_tpu/ops/pallas_attention.py:65", TOL,
          lambda: C.segment_flash_fwd(tq.unflatten(-1, (th, thd)), tk, tv, tseg, tseg, True, thd**-0.5),
          lambda: C.segment_flash_plain(tq.unflatten(-1, (th, thd)), tk, tv, tseg, tseg, True, thd**-0.5)),
-        ("segment_flash_fwd", "vision full layer 2x2304x16x80 on seg_full", "padt_tpu/ops/pallas_attention.py:769",
+        ("segment_flash_fwd", "vision full layer 2x2304x16x80 on seg_full", "padt_tpu/ops/pallas_attention.py:769", TOL,
          lambda: C.segment_flash_fwd(u(vqr), u(vkr), u(vv), seg_full, seg_full, False, hd**-0.5),
          lambda: C.segment_flash_plain(u(vqr), u(vkr), u(vv), seg_full, seg_full, False, hd**-0.5)),
-        ("window_slot_attn", "vision windowed layer 2x2304x16x80 on seg_win", "padt_tpu/ops/pallas_attention.py:860",
+        ("window_slot_attn", "vision windowed layer 2x2304x16x80 on seg_win", "padt_tpu/ops/pallas_attention.py:860", TOL,
          lambda: C.window_slot_attn(u(vqr), u(vkr), u(vv), seg_win, hd**-0.5),
          lambda: C.window_slot_plain(u(vqr), u(vkr), u(vv), seg_win, hd**-0.5)),
+        ("int8_decode_attn", f"decode {slots} slots x 2 kv heads x 8 q x128, int8 cache {nl}x{cap} (layers in turn), 1 fresh column",
+         "padt_tpu/ops/kv_cache.py:206", TOL,
+         walk(K.int8_decode_attn, qd, *cache, *fresh1, valid), walk(K.int8_decode_attn_plain, qd, *cache, *fresh1, valid)),
+        ("int8_verify_attn", f"suffix pass {slots} slots x 2 kv heads x (8x{SUFFIX_K}) q x128, int8 cache {nl}x{cap} (layers in turn), {SUFFIX_K} fresh columns",
+         "padt_tpu/ops/kv_cache.py:402", TOL,
+         walk(K.int8_verify_attn, qv, *cache, *fresh32, valid, tail=(SUFFIX_K,)),
+         walk(K.int8_verify_attn_plain, qv, *cache, *fresh32, valid, tail=(SUFFIX_K,))),
+        ("store_kv_rows", f"decode store: 1 row per slot x {nl} layers x {slots} slots x 2 kv heads, capacity {cap}",
+         "padt_tpu/ops/kv_cache.py:750", 0.0,
+         store(K.store_kv_rows, kbuf, rows1, one), store(K.store_kv_rows_plain, pbuf, rows1, one)),
+        ("store_kv_rows", f"suffix store: n_rows in [0, {SUFFIX_K}] per slot x {nl} layers x {slots} slots x 2 kv heads",
+         "padt_tpu/ops/kv_cache.py:856", 0.0,
+         store(K.store_kv_rows, kbuf, rows32, n32), store(K.store_kv_rows_plain, pbuf, rows32, n32)),
     ]
-    sources = {"rope_qk": "rope_qk.cu", "segment_flash_fwd": "segment_flash.cu", "window_slot_attn": "window_attn.cu"}
+    sources = {
+        "rope_qk": "rope_qk.cu", "segment_flash_fwd": "segment_flash.cu", "window_slot_attn": "window_attn.cu",
+        "int8_decode_attn": "int8_kv.cu", "int8_verify_attn": "int8_kv.cu", "store_kv_rows": "int8_kv.cu",
+    }
     entries = []
-    for name, shape, replaces, kern, plain in cases:
+    for name, shape, replaces, tol, kern, plain in cases:
         out, ref = kern(), plain()
         torch.cuda.synchronize()
-        outs = out if isinstance(out, tuple) else (out,)
-        refs = ref if isinstance(ref, tuple) else (ref,)
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        refs = ref if isinstance(ref, (tuple, list)) else (ref,)
         err = max((a.float() - r.float()).abs().max().item() for a, r in zip(outs, refs))
-        if not err <= TOL:
-            raise AssertionError(f"{name} [{shape}]: max abs err {err} > {TOL}")
+        if not err <= tol:
+            raise AssertionError(f"{name} [{shape}]: max abs err {err} > {tol}")
         ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
-        log(f"[kernel] {name} [{shape}]: max_abs_err {err:.3e} (tol {TOL}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({card})")
+        log(f"[kernel] {name} [{shape}]: max_abs_err {err:.3e} (tol {tol}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({card})")
         entries.append({
             "name": name, "route": "cuda", "source": f"padt_tpu_torch/csrc/{sources[name]}",
             "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -159,15 +226,20 @@ def _finite(name, t, shape=None):
         raise AssertionError(f"{name}: non-finite values")
 
 
-def phase_slice(dev, card):
-    """PaDT-3B REC through run_batch; returns the kernels' launch counts."""
+PROMPTS = [
+    'Please locate "the red car" in the image.',
+    'Where is "the man on the left"?',
+    'Find "the dog next to the bench".',
+    'Locate "the second cup from the right".',
+]
+
+
+def load_3b(dev):
+    """PaDT-3B at full depth and width, random bf16 weights from a seed."""
     from padt_tpu.config import padt_3b
     from padt_tpu.utils.mock_tokenizer import make_full_tokenizer
     from padt_tpu.vrt.processor import VisionTextProcessor
-    from padt_tpu_torch.eval.harness import InferenceEngine
-    from padt_tpu_torch.models import language
     from padt_tpu_torch.models import padt as P
-    from padt_tpu_torch.ops import cuda_attention as C
 
     cfg = padt_3b()
     assert cfg.max_image_patches == PATCHES
@@ -179,12 +251,17 @@ def phase_slice(dev, card):
     log(f"[slice] padt_3b random weights: {n_params / 1e9:.3f} B params bf16 in {time.perf_counter() - t0:.1f} s")
     proc = VisionTextProcessor(make_full_tokenizer(cfg), cfg)
     proc.prepare(cfg.text.vocab_size)
-    prompts = [
-        'Please locate "the red car" in the image.',
-        'Where is "the man on the left"?',
-        'Find "the dog next to the bench".',
-        'Locate "the second cup from the right".',
-    ][:BATCH]
+    return cfg, model, proc
+
+
+def phase_slice(dev, card, cfg, model, proc):
+    """PaDT-3B REC through run_batch; returns the kernels' launch counts."""
+    from padt_tpu_torch.eval.harness import InferenceEngine
+    from padt_tpu_torch.models import language
+    from padt_tpu_torch.models import padt as P
+    from padt_tpu_torch.ops import cuda_attention as C
+
+    prompts = PROMPTS[:BATCH]
     images = [_u8_image(i) for i in range(BATCH)]
     engine = InferenceEngine(model.params, cfg, proc, max_new_tokens=NEW_TOKENS)
 
@@ -269,8 +346,10 @@ def phase_slice(dev, card):
 
 
 def phase_tiny_reference(dev):
-    """Tiny model: vision tower + prefill on the card (bf16, kernels) vs the
-    plain float32 path on the CPU, same weights."""
+    """Tiny model on the card (bf16, kernels) vs the plain float32 path on the
+    CPU, same weights: the vision tower and bf16-KV prefill, then the int8
+    serve path (int8 prefill into a 2-slot pool, one 32-wide suffix pass
+    through H5 + H6, one decode step through H4 + H6)."""
     import numpy as np
 
     from padt_tpu.config import padt_tiny
@@ -280,6 +359,8 @@ def phase_tiny_reference(dev):
     from padt_tpu_torch.models import language
     from padt_tpu_torch.models import padt as P
     from padt_tpu_torch.ops import cuda_attention as C
+    from padt_tpu_torch.ops import cuda_kv as K
+    from padt_tpu_torch.serve import engine as S
 
     cfg = padt_tiny()
     p32 = P.init_padt_params(cfg, torch.Generator().manual_seed(1), "cpu", torch.float32)
@@ -293,27 +374,40 @@ def phase_tiny_reference(dev):
         for i, g in enumerate(grids)
     ]
     batch = proc.build_batch(['find "x"', 'where is "y"'], imgs, patch_bucket=cfg.max_image_patches)
+    sfx_ids = np.random.RandomState(7).randint(0, 100, (2, SUFFIX_K))
+    sfx_len, step_ids = [5, 3], [[11], [12]]
 
     def run(params, device):
         tb = {k: torch.as_tensor(v, device=device) for k, v in batch.data.items()}
+        T = lambda a: torch.as_tensor(np.asarray(a), device=device)
         with torch.inference_mode():
             art = P.run_vision(params, cfg, tb)
             emb = P.extended_embed(params, cfg, tb["input_ids"], art.proto, art.merged)
             valid = tb["attention_mask"].bool()
             hid, _ = language.prefill(params["text"], cfg.text, emb, tb["position_ids"], valid, valid.shape[1])
-        return art.merged.float().cpu(), hid.float().cpu(), valid.cpu()
+            cap = -(-(valid.shape[1] + SUFFIX_K + 1) // 128) * 128
+            st = S.init_state(cfg, 2, cap, 4, dtype=params["text"]["embed"].dtype, device=device)
+            S.insert(st, S.prefill(params, cfg, tb, T(batch.rope_deltas), cap), T([0, 1]), T([4, 4]))
+            S._suffix_prefill_step(params, cfg, st, T(sfx_ids), T(sfx_len))
+            h_sfx = st.cur_hidden.float().cpu()
+            h_step = S._decode_step_slots(params["text"], cfg.text, P.extended_embed(params, cfg, T(step_ids), st.proto), st)
+        return art.merged.float().cpu(), hid.float().cpu(), valid.cpu(), h_sfx, h_step.float().cpu()
 
-    n0 = sum(C.launch_counts.values())
-    m_ref, h_ref, valid = run(p32, "cpu")
-    m_dev, h_dev, _ = run(p16, dev)
-    if sum(C.launch_counts.values()) == n0:
+    n0, n0_kv = sum(C.launch_counts.values()), sum(K.launch_counts.values())
+    m_ref, h_ref, valid, s_ref, d_ref = run(p32, "cpu")
+    m_dev, h_dev, _, s_dev, d_dev = run(p16, dev)
+    if sum(C.launch_counts.values()) == n0 or sum(K.launch_counts.values()) == n0_kv:
         raise AssertionError("tiny reference run launched no kernel on the card")
     errs = []
     for name, a, r, rows in (
         ("merged", m_dev, m_ref, [slice(0, grids[i][1] * grids[i][2] // 4) for i in range(2)]),
-        ("prefill hidden", h_dev, h_ref, None),
+        ("prefill hidden", h_dev, h_ref, "valid"),
+        ("int8 suffix-pass hidden", s_dev, s_ref, None),
+        ("int8 decode-step hidden", d_dev, d_ref, None),
     ):
         if rows is None:
+            diff, mag = (a - r).abs().max().item(), r.abs().max().item()
+        elif rows == "valid":
             diff, mag = (a - r)[valid].abs().max().item(), r[valid].abs().max().item()
         else:
             diff = max((a[i, sl] - r[i, sl]).abs().max().item() for i, sl in enumerate(rows))
@@ -323,6 +417,139 @@ def phase_tiny_reference(dev):
         log(f"[reference] tiny {name}: card bf16 vs CPU float32 max abs err {diff:.3e}, relative to max {rel:.3e} (tol {TINY_REL_TOL})")
         if not rel <= TINY_REL_TOL:
             raise AssertionError(f"tiny {name} disagrees with the CPU reference: {rel}")
+
+
+def _check_completions(name, comps, n, budgets, d):
+    """n completions, each with 1..budget tokens and finite hidden states."""
+    if len(comps) != n:
+        raise AssertionError(f"{name}: {len(comps)} completions for {n} requests")
+    for c in comps:
+        bud = budgets[c.uid]
+        if not (1 <= c.n_gen <= bud and len(c.tokens) == c.n_gen):
+            raise AssertionError(f"{name}: request {c.uid} has {c.n_gen} tokens for a budget of {bud}")
+        if c.hidden is not None:
+            _finite(f"{name} hidden", c.hidden, (NEW_TOKENS, d))
+
+
+def _check_results(name, results, n):
+    if len(results) != n or not all(isinstance(r.completion, str) for r in results):
+        raise AssertionError(f"{name}: malformed results")
+    for r in results:
+        for o in r.objects:
+            if not (0.0 <= o.score <= 1.0):
+                raise AssertionError(f"{name}: object score {o.score} out of [0, 1]")
+
+
+def phase_serve(dev, card, cfg, model, proc):
+    """PaDT-3B through the continuous-batching serve engine (int8 KV, packed
+    weights): run_stream, ServeEngine.run with mixed budgets, share_prefix
+    run_stream and a speculative=4 engine. Returns the launch counts of the
+    whole phase and the forward counts that set their floors."""
+    from padt_tpu_torch.eval.harness import InferenceEngine
+    from padt_tpu_torch.ops import cuda_attention as C
+    from padt_tpu_torch.ops import cuda_kv as K
+    from padt_tpu_torch.serve import ServeEngine
+
+    d = cfg.text.hidden_size
+    prompts = [PROMPTS[i % len(PROMPTS)].replace('"the', f'"the {w}') for i, w in enumerate(
+        ["big", "small", "old", "new", "left", "right", "top", "blue", "green", "dark", "light", "far", "near", "tall", "short", "round"])]
+    images = [_u8_image(100 + i) for i in range(SERVE_REQUESTS)]
+    engine = InferenceEngine(model.params, cfg, proc, max_new_tokens=NEW_TOKENS)
+    kw = dict(n_slots=SERVE_SLOTS, max_new_tokens=NEW_TOKENS, prompt_len=PROMPT_LEN, prefill_bucket=SERVE_BUCKET,
+              patch_bucket=PATCHES, collect_hidden=True)
+    forwards = {"decode": 0, "verify": 0, "suffix": 0}
+
+    def report(what, wall, prefill_s, decode_s, tokens, steps, n_req):
+        util = tokens / (steps * SERVE_SLOTS) if steps else 0.0
+        log(f"[serve] {what}: {n_req} requests, {SERVE_SLOTS} slots, bucket {SERVE_BUCKET}: {wall:.3f} s wall, "
+            f"device prefill {prefill_s:.3f} s, device decode {decode_s:.3f} s (CUDA events), {tokens} tokens in "
+            f"{steps} steps -> {tokens / decode_s:.1f} decode tok/s, slot utilization {util:.3f} ({card})")
+
+    C.reset_launch_counts()
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    # 1. the user entry point: run_stream of 16 REC requests (prompt bucket 640)
+    t0 = time.perf_counter()
+    results = engine.run_stream(prompts, images, n_slots=SERVE_SLOTS, prefill_bucket=SERVE_BUCKET, prompt_bucket=PROMPT_LEN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check_results("run_stream", results, SERVE_REQUESTS)
+    sp = engine.pop_stream_stats()
+    forwards["decode"] += sp["decode_steps"]
+    report("run_stream", wall, sp["engine_prefill_s"], sp["engine_decode_s"], sp["generated_tokens"], sp["decode_steps"], SERVE_REQUESTS)
+    if sp["generated_tokens"] < SERVE_REQUESTS:
+        raise AssertionError(f"run_stream generated {sp['generated_tokens']} tokens for {SERVE_REQUESTS} requests")
+    if "qkv_w" not in engine.params["text"]["layers"]:
+        raise AssertionError("the serve engine did not run on packed weights")
+
+    # 2. ServeEngine.run with per-request budgets 8..32: slots drain and refill at different steps
+    reqs, _ = engine.build_stream_requests(prompts, images, prompt_bucket=PROMPT_LEN)
+    budgets = [8 + (24 * ((5 * i) % SERVE_REQUESTS)) // (SERVE_REQUESTS - 1) for i in range(SERVE_REQUESTS)]
+    for q, bud in zip(reqs, budgets):
+        q.max_new_tokens = bud
+    plain = ServeEngine(engine.params, cfg, **kw)
+    t0 = time.perf_counter()
+    comps, st = plain.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check_completions("ServeEngine.run", comps, SERVE_REQUESTS, budgets, d)
+    forwards["decode"] += st.decode_steps
+    report(f"ServeEngine.run, budgets {min(budgets)}..{max(budgets)}", wall, st.prefill_s, st.decode_s,
+           st.generated_tokens, st.decode_steps, SERVE_REQUESTS)
+
+    # 3. share_prefix: 8 prompts over 2 images, one prefix prefill per image + suffix passes
+    two = [_u8_image(200), _u8_image(201)]
+    n_pfx = 8
+    t0 = time.perf_counter()
+    results = engine.run_stream(prompts[:n_pfx], [two[i % 2] for i in range(n_pfx)], n_slots=SERVE_SLOTS,
+                                prefill_bucket=SERVE_BUCKET, share_prefix=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check_results("run_stream(share_prefix=True)", results, n_pfx)
+    sp = engine.pop_stream_stats()
+    if sp["suffix_passes"] < 1:
+        raise AssertionError("share_prefix ran no suffix pass")
+    forwards["decode"] += sp["decode_steps"]
+    forwards["suffix"] += sp["suffix_passes"]
+    report(f"run_stream(share_prefix=True), 2 images, {sp['suffix_passes']} suffix passes", wall,
+           sp["engine_prefill_s"], sp["engine_decode_s"], sp["generated_tokens"], sp["decode_steps"], n_pfx)
+
+    # 4. speculative=4: prompt-lookup drafts verified 4 tokens at a time (H5)
+    n_spec = SERVE_SLOTS
+    spec = ServeEngine(engine.params, cfg, speculative=4, **kw)
+    t0 = time.perf_counter()
+    scomps, sst = spec.run(reqs[:n_spec])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check_completions("speculative=4", scomps, n_spec, budgets, d)
+    forwards["verify"] += sst.decode_steps
+    report("ServeEngine.run speculative=4", wall, sst.prefill_s, sst.decode_s, sst.generated_tokens, sst.decode_steps, n_spec)
+    by_uid = {c.uid: c for c in comps}
+    same = sum(int(len(c.tokens) == len(by_uid[c.uid].tokens) and (c.tokens == by_uid[c.uid].tokens).all()) for c in scomps)
+    log(f"[serve] speculative vs plain greedy: {same} of {n_spec} completions token-identical "
+        "(bf16 verify and decode round differently, so a near-tie may flip)")
+
+    counts = {**C.launch_counts, **K.launch_counts}
+    log(f"[serve] launches {counts}; forwards {forwards}")
+    return counts, forwards
+
+
+def check_serve_launches(counts, forwards):
+    """Every int8 kernel ran on the serve path: H4 in every layer of every
+    decode step, H5 in every layer of every suffix / verify pass, H6 once
+    after each of them."""
+    from padt_tpu.config import padt_3b
+
+    nl = padt_3b().text.num_hidden_layers
+    passes = forwards["verify"] + forwards["suffix"]
+    need = {
+        "int8_decode_attn": nl * forwards["decode"],
+        "int8_verify_attn": nl * passes,
+        "store_kv_rows": forwards["decode"] + passes,
+    }
+    for k, n in need.items():
+        if not (n > 0 and counts[k] >= n):
+            raise AssertionError(f"{k} launched {counts[k]} times in the serve phase, expected >= {n} (> 0)")
 
 
 def check_launches(counts):
@@ -352,10 +579,13 @@ def main() -> int:
     name, card = phase_device()
     entries = phase_kernels(dev, card)
     phase_tiny_reference(dev)
-    counts = phase_slice(dev, card)
+    cfg, model, proc = load_3b(dev)
+    counts = phase_slice(dev, card, cfg, model, proc)
     check_launches(counts)
-    for e in entries:
-        e["launches"] = counts[e["name"]]
+    serve_counts, forwards = phase_serve(dev, card, cfg, model, proc)
+    check_serve_launches(serve_counts, forwards)
+    for e in entries:  # each kernel's launches on its own path: run_batch for H1-H3, serving for H4-H6
+        e["launches"] = counts[e["name"]] if e["name"] in counts else serve_counts[e["name"]]
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
     return 0

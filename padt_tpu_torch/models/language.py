@@ -1,16 +1,18 @@
 """Qwen2.5 text decoder with M-RoPE and a static-shape KV cache (port of
-`padt_tpu/models/language.py`, unpacked weights, bf16 KV).
+`padt_tpu/models/language.py`): unpacked or packed (`pack_inference_params`)
+bf16 weights, a bf16 or an int8 KV cache.
 
 `prefill` runs the causal forward over the prompt and seeds the cache;
 `decode_step` runs one token over it. Both return post-final-norm hidden
 states. q/k rope runs through the H1 kernel and prefill attention through
-H2 on the card; decode attention is plain PyTorch, as JAX leaves it to XLA.
+H2 on the card. bf16 decode attention is plain PyTorch, as JAX leaves it to
+XLA; int8 decode attention is H4 and its row store H6.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -19,6 +21,7 @@ from padt_tpu.config import TextConfig
 
 from ..ops.attention import causal_attention, decode_attention
 from ..ops.cuda_attention import rope_qk
+from ..ops.kv_cache import decode_attention_int8, empty_scale, quantize_kv, store_kv_rows_all_layers
 from ..ops.norms import rms_norm
 from ..ops.rope import mrope_cos_sin
 from .params import normal, ones, zeros
@@ -32,6 +35,19 @@ class KVCache:
     length: int  # slots written so far (the same for every row)
 
 
+@dataclass
+class QuantKVCache:
+    """Int8 KV cache: per-token, per-kv-head symmetric quantization; C next
+    to hd so each (sample, head) slice is one contiguous (C, hd) tile."""
+
+    k: torch.Tensor  # (layers, B, Hkv, C, hd) int8
+    k_scale: torch.Tensor  # (layers, B, Hkv, C) fp32
+    v: torch.Tensor
+    v_scale: torch.Tensor
+    valid: torch.Tensor  # (B, C) bool
+    length: int
+
+
 def init_cache(cfg: TextConfig, batch: int, capacity: int, dtype, device) -> KVCache:
     shape = (cfg.num_hidden_layers, batch, capacity, cfg.num_key_value_heads, cfg.head_dim)
     return KVCache(
@@ -40,6 +56,27 @@ def init_cache(cfg: TextConfig, batch: int, capacity: int, dtype, device) -> KVC
         valid=torch.zeros((batch, capacity), dtype=torch.bool, device=device),
         length=0,
     )
+
+
+def init_quant_cache(cfg: TextConfig, batch: int, capacity: int, device) -> QuantKVCache:
+    """Every row as `quantize_kv` leaves an all-zero (padding) row: value 0,
+    scale 1e-8 / 127."""
+    shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads, capacity)
+    return QuantKVCache(
+        k=torch.zeros((*shape, cfg.head_dim), dtype=torch.int8, device=device),
+        k_scale=torch.full(shape, empty_scale(), dtype=torch.float32, device=device),
+        v=torch.zeros((*shape, cfg.head_dim), dtype=torch.int8, device=device),
+        v_scale=torch.full(shape, empty_scale(), dtype=torch.float32, device=device),
+        valid=torch.zeros((batch, capacity), dtype=torch.bool, device=device),
+        length=0,
+    )
+
+
+def quantize_cache(cache: KVCache) -> QuantKVCache:
+    """bf16 cache (e.g. fresh from prefill) -> int8 cache."""
+    k8, ks = quantize_kv(cache.k.permute(0, 1, 3, 2, 4))
+    v8, vs = quantize_kv(cache.v.permute(0, 1, 3, 2, 4))
+    return QuantKVCache(k=k8, k_scale=ks, v=v8, v_scale=vs, valid=cache.valid, length=cache.length)
 
 
 def init_text_params(cfg: TextConfig, generator: torch.Generator, device, dtype):
@@ -73,17 +110,28 @@ def _layer(params, li: int):
 
 
 def _qkv_rot(xn, lp, cfg: TextConfig, cos, sin):
-    """Projections + rope -> q (B, L, H, hd), k and v (B, L, Hkv, hd)."""
+    """Projections + rope -> q (B, L, H, hd), k and v (B, L, Hkv, hd). With
+    packed weights (`qkv_w`, one fused product), H1 reads q and k as column
+    views of the fused output and v stays a view of it."""
     b, l, _ = xn.shape
     h, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    qp = xn @ lp["q_w"] + lp["q_b"]
-    kp = xn @ lp["k_w"] + lp["k_b"]
-    v = (xn @ lp["v_w"] + lp["v_b"]).reshape(b, l, hkv, hd)
+    if "qkv_w" in lp:
+        qkv = xn @ lp["qkv_w"] + lp["qkv_b"]
+        qp, kp = qkv[..., : h * hd], qkv[..., h * hd : (h + hkv) * hd]
+        v = qkv[..., (h + hkv) * hd :].unflatten(-1, (hkv, hd))
+    else:
+        qp = xn @ lp["q_w"] + lp["q_b"]
+        kp = xn @ lp["k_w"] + lp["k_b"]
+        v = (xn @ lp["v_w"] + lp["v_b"]).reshape(b, l, hkv, hd)
     q, k = rope_qk(qp, kp, cos, sin, h, hkv)
     return q.reshape(b, l, h, hd), k.reshape(b, l, hkv, hd), v
 
 
 def _mlp(x, lp):
+    if "gateup_w" in lp:
+        gu = x @ lp["gateup_w"]
+        ff = gu.shape[-1] // 2
+        return (F.silu(gu[..., :ff]) * gu[..., ff:]) @ lp["down_w"]
     return (F.silu(x @ lp["gate_w"]) * (x @ lp["up_w"])) @ lp["down_w"]
 
 
@@ -96,24 +144,23 @@ def prefill(
     capacity: int,
     kv_dtype: str = "bf16",
     batch_chunk: Optional[int] = None,
-) -> Tuple[torch.Tensor, KVCache]:
+):
     """Causal forward; the cache holds the prompt's K/V in slots [0, L).
 
-    kv_dtype "bf16" keeps K/V in the activations' dtype (the JAX name);
-    "int8" is the next slice of the port (its decode kernel is not ported
-    yet). batch_chunk: run each layer over row chunks of this size (when it
-    divides B and B > chunk); rows are independent, so the result is the
-    same and only per-layer transients shrink."""
-    if kv_dtype == "int8":
-        raise NotImplementedError(
-            "int8 KV cache is the next slice of the port (int8 decode kernel, "
-            "padt_tpu/ops/kv_cache.py::_decode_kernel_stacked_fresh_bb)"
-        )
-    if kv_dtype != "bf16":
+    kv_dtype "bf16" keeps K/V in the activations' dtype (the JAX name) and
+    returns a `KVCache`; "int8" quantizes each layer's K/V inside the layer
+    loop (no bf16 stack of all layers is ever held) and returns a
+    `QuantKVCache` whose rows past L hold what quantizing zero padding gives.
+    batch_chunk: run each layer over row chunks of this size (when it divides
+    B and B > chunk); rows are independent, so the result is the same and
+    only per-layer transients shrink."""
+    if kv_dtype not in ("bf16", "int8"):
         raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
     b, l, _ = inputs_embeds.shape
     cos, sin = mrope_cos_sin(position_ids, cfg.head_dim, cfg.mrope_section, cfg.rope_theta)
-    cache = init_cache(cfg, b, capacity, inputs_embeds.dtype, inputs_embeds.device)
+    dev = inputs_embeds.device
+    int8 = kv_dtype == "int8"
+    cache = init_quant_cache(cfg, b, capacity, dev) if int8 else init_cache(cfg, b, capacity, inputs_embeds.dtype, dev)
     chunked = bool(batch_chunk) and b > batch_chunk and b % batch_chunk == 0
     bounds = [(i, i + batch_chunk) for i in range(0, b, batch_chunk)] if chunked else [(0, b)]
     x = inputs_embeds
@@ -127,8 +174,12 @@ def prefill(
             attn = causal_attention(q, k, v, valid[s0:s1])
             xc = xc + attn.reshape(s1 - s0, l, -1) @ lp["o_w"]
             xc = xc + _mlp(rms_norm(xc, lp["post_ln_w"], cfg.rms_norm_eps), lp)
-            cache.k[li, s0:s1, :l] = k
-            cache.v[li, s0:s1, :l] = v
+            if int8:
+                cache.k[li, s0:s1, :, :l], cache.k_scale[li, s0:s1, :, :l] = quantize_kv(k.transpose(1, 2))
+                cache.v[li, s0:s1, :, :l], cache.v_scale[li, s0:s1, :, :l] = quantize_kv(v.transpose(1, 2))
+            else:
+                cache.k[li, s0:s1, :l] = k
+                cache.v[li, s0:s1, :l] = v
             outs.append(xc)
         x = torch.cat(outs) if chunked else outs[0]
     hidden = rms_norm(x, params["final_ln_w"], cfg.rms_norm_eps)
@@ -137,20 +188,17 @@ def prefill(
     return hidden, cache
 
 
-def decode_step(
-    params,
-    cfg: TextConfig,
-    inputs_embeds: torch.Tensor,  # (B, 1, D)
-    position_ids: torch.Tensor,  # (3, B, 1)
-    cache: KVCache,
-) -> Tuple[torch.Tensor, KVCache]:
-    """One decode step at slot `cache.length`.
+def decode_step(params, cfg: TextConfig, inputs_embeds: torch.Tensor, position_ids: torch.Tensor, cache):
+    """One decode step at slot `cache.length` (inputs_embeds (B, 1, D),
+    position_ids (3, B, 1)).
 
-    Updates `cache` IN PLACE (each layer's new K/V row via `index_copy_`,
-    the slot's `valid` bit, `length`) and returns it, unlike the JAX
-    version, which returns a new cache."""
-    if cache.length >= cache.k.shape[2]:
+    Updates `cache` IN PLACE (the new K/V row of every layer, the slot's
+    `valid` bit, `length`) and returns it, unlike the JAX version, which
+    returns a new cache."""
+    if cache.length >= cache.valid.shape[1]:
         raise ValueError(f"KV cache full ({cache.length} slots)")
+    if isinstance(cache, QuantKVCache):
+        return _decode_step_int8(params, cfg, inputs_embeds, position_ids, cache)
     b = inputs_embeds.shape[0]
     cos, sin = mrope_cos_sin(position_ids, cfg.head_dim, cfg.mrope_section, cfg.rope_theta)
     pos = cache.length
@@ -168,3 +216,41 @@ def decode_step(
         x = x + _mlp(rms_norm(x, lp["post_ln_w"], cfg.rms_norm_eps), lp)
     cache.length = pos + 1
     return rms_norm(x, params["final_ln_w"], cfg.rms_norm_eps), cache
+
+
+def int8_layers(params, cfg: TextConfig, x, cos, sin, attend):
+    """The text layers over an int8 cache that stays unchanged inside the
+    loop (x (B, n, D): n new tokens). Each layer's new K/V rows are
+    quantized and handed to `attend(q, layer, fresh)` as its fresh columns
+    (H4 or H5 on the card). Returns the post-final-norm hidden and the new
+    rows of every layer, stacked for one store after the loop:
+    (k8r (L, B, Hkv, n, hd), ksr (L, B, Hkv, n), v8r, vsr)."""
+    b, n, _ = x.shape
+    rows = []
+    for li in range(cfg.num_hidden_layers):
+        lp = _layer(params, li)
+        q, k, v = _qkv_rot(rms_norm(x, lp["input_ln_w"], cfg.rms_norm_eps), lp, cfg, cos, sin)
+        fresh = (*quantize_kv(k.transpose(1, 2)), *quantize_kv(v.transpose(1, 2)))
+        x = x + attend(q, li, fresh).reshape(b, n, -1) @ lp["o_w"]
+        x = x + _mlp(rms_norm(x, lp["post_ln_w"], cfg.rms_norm_eps), lp)
+        rows.append(fresh)
+    return rms_norm(x, params["final_ln_w"], cfg.rms_norm_eps), tuple(torch.stack(t) for t in zip(*rows))
+
+
+def _decode_step_int8(params, cfg: TextConfig, inputs_embeds, position_ids, cache: QuantKVCache):
+    """One int8-KV decode step: H4 reads each layer of the pre-update cache
+    with the current token as its fresh column; one H6 launch then writes
+    every layer's new row at `cache.length`."""
+    cos, sin = mrope_cos_sin(position_ids, cfg.head_dim, cfg.mrope_section, cfg.rope_theta)
+    pos = cache.length
+    hidden, new_rows = int8_layers(
+        params, cfg, inputs_embeds, cos, sin,
+        lambda q, li, fresh: decode_attention_int8(
+            q, cache.k, cache.k_scale, cache.v, cache.v_scale, cache.valid, layer=li, fresh_kv=fresh,
+        ),
+    )
+    at = torch.full((inputs_embeds.shape[0],), pos, dtype=torch.int32, device=inputs_embeds.device)
+    store_kv_rows_all_layers(cache.k, cache.k_scale, cache.v, cache.v_scale, *new_rows, at)
+    cache.valid[:, pos] = True
+    cache.length = pos + 1
+    return hidden, cache

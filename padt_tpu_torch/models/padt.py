@@ -50,6 +50,26 @@ def init_padt_params(cfg: PaDTConfig, generator: torch.Generator, device, dtype=
     return params
 
 
+def pack_inference_params(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Fuse the text layers' weight streams for serving: q|k|v -> `qkv_w`
+    (L, d, (H+2*Hkv)*hd) and `qkv_b`, gate|up -> `gateup_w` (L, d, 2*ff).
+    Exact: each output column depends only on its own weight column.
+    Idempotent; the other leaves are shared with `params`. The int8-weight
+    layout (`*_q` / `*_s`) comes with the int8 matmul kernel (K10)."""
+    layers = dict(params["text"]["layers"])
+    if "qkv_w" in layers:
+        return params
+    if "q_w_q" in layers:
+        raise NotImplementedError("int8 weights are not ported yet (K10, ROADMAP.md)")
+    cat = lambda names: torch.cat([layers.pop(n) for n in names], dim=-1)
+    layers["qkv_w"] = cat(("q_w", "k_w", "v_w"))
+    layers["gateup_w"] = cat(("gate_w", "up_w"))
+    layers["qkv_b"] = cat(("q_b", "k_b", "v_b"))
+    out = dict(params)
+    out["text"] = dict(params["text"], layers=layers)
+    return out
+
+
 class _Tree(torch.nn.Module):
     """Registers a nested dict of tensors as buffers / submodules, so the
     tree moves with `.to()` and appears in `state_dict()` under dotted keys."""
@@ -292,7 +312,9 @@ def generate(
     """Vision + prefill + a decode loop, with the JAX semantics: a finished
     row emits pad_token_id, num_generated counts the EOS, hidden[:, t] is the
     post-final-norm hidden state that produced token t, and the loop stops
-    once every row has finished (one host check per step)."""
+    once every row has finished (one host check per step).
+    kv_cache_dtype "int8" keeps the cache in int8 (H4 decode attention, H6
+    row store) with its capacity rounded up to a multiple of 128."""
     if kv_cache_dtype not in ("bf16", "int8"):
         raise ValueError(f"unknown kv_cache_dtype {kv_cache_dtype!r}")
     eos = cfg.eos_token_id if eos_token_id is None else eos_token_id
@@ -301,11 +323,15 @@ def generate(
     dev = batch["input_ids"].device
     dtype = params["text"]["embed"].dtype
 
+    capacity = l + max_new_tokens
+    if kv_cache_dtype == "int8":
+        capacity = -(-capacity // 128) * 128  # as the JAX package sizes it
+
     art = run_vision(params, cfg, batch)
     embeds = extended_embed(params, cfg, batch["input_ids"], art.proto, art.merged)
     valid = batch["attention_mask"].bool()
     hidden, cache = language.prefill(
-        params["text"], tcfg, embeds, batch["position_ids"], valid, l + max_new_tokens,
+        params["text"], tcfg, embeds, batch["position_ids"], valid, capacity,
         kv_dtype=kv_cache_dtype, batch_chunk=prefill_batch_chunk,
     )
     cur = hidden[:, -1:, :]  # predicts the first new token

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-All of `padt_tpu_torch/csrc/*.cu` compile, with `nvcc` for `sm_90a`, into one
-shared library with a plain C interface, loaded with `ctypes`. The library
-lands in `build/padt_tpu_torch/` at the repository root, named by a hash of
-the sources and flags, so an edited source is rebuilt at its first use and an
+Each of `padt_tpu_torch/csrc/*.cu` compiles, with its own `nvcc` for
+`sm_90a` (all started together), into an object; one link makes a shared
+library with a plain C interface, loaded with `ctypes`. The library lands in
+`build/padt_tpu_torch/` at the repository root, named by a hash of the
+sources and flags, so an edited source is rebuilt at its first use and an
 unchanged one is loaded as it is. Nothing is built when the module is
 imported: the first kernel launch builds.
 """
@@ -22,7 +23,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "padt_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -32,6 +33,9 @@ _SIGNATURES = {
     "padt_segment_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
     + [_LL] * 9 + [_I, _F, _P],
     "padt_window_slot_attn": [_P, _P, _P, _P, _P, _I, _I, _I, _I] + [_LL] * 9 + [_F, _P],
+    "padt_int8_decode_attn": [_P] * 11 + [_I] * 7 + [_F, _P],
+    "padt_int8_verify_attn": [_P] * 11 + [_I] * 8 + [_F, _P],
+    "padt_store_kv_rows": [_P] * 10 + [_I] * 6 + [_P],
 }
 
 
@@ -66,12 +70,25 @@ def build() -> Path:
         return so
     cu, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in cu]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(cu, objs)]
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)) for cmd in cmds]
+    failed = []
+    for cmd, pr in procs:  # wait for every compile before reporting any
+        out, _ = pr.communicate()
+        if pr.returncode != 0:
+            failed.append(f"nvcc failed ({pr.returncode}):\n{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}{res.stderr}")
     os.replace(tmp, so)
+    for obj in objs:
+        obj.unlink()
     return so
 
 

@@ -59,6 +59,22 @@ def test_init_tree_matches_jax_keys_shapes_dtypes(dtype):
         assert tf[k].dtype == dtype, k
 
 
+def test_pack_inference_params_matches_jax_key_for_key():
+    """pack(bridge(p)) == bridge(JAX pack(p)): the same keys, shapes and
+    values (a concatenation, exact); packing twice changes nothing."""
+    cfg, jp, tp = tiny_params(2)
+    ours = _flat(TP.pack_inference_params(tp))
+    theirs = _flat(params_from_numpy(jax.tree.map(np.asarray, JP.pack_inference_params(jp))))
+    assert set(ours) == set(theirs)
+    assert {"text/layers/qkv_w", "text/layers/qkv_b", "text/layers/gateup_w"} <= set(ours)
+    assert not {"text/layers/q_w", "text/layers/up_w"} & set(ours)
+    for k, v in theirs.items():
+        assert torch.equal(ours[k], v), k
+    packed = TP.pack_inference_params(tp)
+    assert TP.pack_inference_params(packed) is packed
+    assert "q_w" in tp["text"]["layers"]  # the input tree is left as it was
+
+
 def test_padt_model_holds_the_tree():
     cfg, _, tp = tiny_params(0)
     model = TP.PaDTModel(cfg, tp)
@@ -73,6 +89,7 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "import padt_tpu_torch.eval.harness, padt_tpu_torch.models.padt, padt_tpu_torch.convert.from_jax\n"
         "import padt_tpu_torch.ops.cuda_attention, padt_tpu_torch.ops._build\n"
+        "import padt_tpu_torch.ops.cuda_kv, padt_tpu_torch.ops.kv_cache, padt_tpu_torch.serve\n"
         "print('jax' in sys.modules)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -47,6 +47,27 @@ def test_greedy_generate_is_token_exact():
     assert torch.all(to.hidden[:, int(to.num_generated.max()) :] == 0)
 
 
+def test_int8_generate_is_token_exact():
+    """kv_cache_dtype="int8" (capacity rounded up to 128, H4 decode
+    attention and H6 row stores through their twins) on packed weights:
+    tokens and counts equal to JAX's int8 generate, hidden states within
+    1e-3 (an int8 value may differ by one quantum at a rounding boundary)."""
+    cfg, jp, _ = tiny_params(0)
+    jp["text"]["layers"] = jax.tree.map(lambda x: x * 5.0 if x.ndim == 3 else x, jp["text"]["layers"])
+    tp = TP.pack_inference_params(params_from_numpy(jax.tree.map(np.asarray, jp)))
+    proc = tiny_processor(cfg)
+    imgs = [seeded_image((1, 8, 12), 3, u8=False), seeded_image((1, 12, 16), 4, u8=False)]
+    batch = proc.build_batch(['find "x"', 'where is "the dog"'], imgs, patch_bucket=cfg.max_image_patches)
+    jb, tb = jax_batch(batch.data), torch_batch(batch.data)
+    deltas = batch.rope_deltas
+    jo = JP.generate(jp, cfg, jb, STEPS, jnp.asarray(deltas), eos_token_id=-1, kv_cache_dtype="int8")
+    to = TP.generate(tp, cfg, tb, STEPS, torch.as_tensor(deltas), eos_token_id=-1, kv_cache_dtype="int8")
+    np.testing.assert_array_equal(to.tokens.numpy(), np.asarray(jo.tokens))
+    assert len(set(to.tokens.flatten().tolist())) > 3
+    np.testing.assert_array_equal(to.num_generated.numpy(), np.asarray(jo.num_generated))
+    close(to.hidden, np.asarray(jo.hidden), tol=1e-3)
+
+
 def test_sample_token_greedy_and_seeded_sampling():
     r = np.random.RandomState(0)
     logits = torch.tensor(r.randn(3, 50).astype(np.float32) * 3)

@@ -6,6 +6,8 @@ The JAX engine runs with compact_pixels=False: its run_batch keys its
 compile cache on `pixel_patches`, which the compact uint8 format does not
 carry. The port accepts both formats."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -16,8 +18,10 @@ import torch
 from test_torch_common import seeded_image, tiny_params, tiny_processor
 from padt_tpu.eval import rle as rle_codec
 from padt_tpu.eval.harness import InferenceEngine as JaxEngine
+from padt_tpu.eval.harness import infer_dataset as JaxInferDataset
 from padt_tpu_torch.convert.from_jax import params_from_numpy
 from padt_tpu_torch.eval import harness as TH
+from padt_tpu_torch.models import padt as TP
 
 
 def test_upsample_matches_cv2_linear():
@@ -65,6 +69,24 @@ def test_run_batch_matches_jax_engine(monkeypatch):
             oi += 1
 
 
+def test_run_batch_on_packed_weights_matches_jax_engine():
+    """run_batch on `pack_inference_params` weights (fused qkv / gateup, as
+    the serve engine leaves them) gives the JAX engine's completions and
+    boxes on its unpacked weights."""
+    cfg, jp, _ = tiny_params(4)
+    jp["proto"]["ln_w"] = jnp.ones_like(jp["proto"]["ln_w"])
+    tp = TP.pack_inference_params(params_from_numpy(jax.tree.map(np.asarray, jp)))
+    images = [seeded_image((1, 8, 12), 5 + i, u8=False) for i in range(2)]
+    prompts = ['find "x"', 'where is "the cat"']
+    kw = dict(max_new_tokens=6, canvas_hw=(17, 17), compute_mask=False)
+    jres = JaxEngine(jp, cfg, tiny_processor(cfg), compact_pixels=False, **kw).run_batch(prompts, images)
+    tres = TH.InferenceEngine(tp, cfg, tiny_processor(cfg), **kw).run_batch(prompts, images)
+    assert sum(len(r.objects) for r in jres) > 0
+    for jr, tr in zip(jres, tres):
+        assert tr.completion == jr.completion
+        assert [(o.label, o.bbox_xywh_px) for o in tr.objects] == [(o.label, o.bbox_xywh_px) for o in jr.objects]
+
+
 def test_raw_images_follow_the_engine_wire_format_and_leave_the_processor_alone():
     import PIL.Image
 
@@ -78,3 +100,41 @@ def test_raw_images_follow_the_engine_wire_format_and_leave_the_processor_alone(
         assert proc.u8_pixels is False
     # both wire formats expand to the same bf16 pixels, so the same completion
     assert out[True][0].completion == out[False][0].completion
+
+
+@pytest.mark.parametrize("stream,share", [(False, False), (True, False), (True, True)])
+def test_infer_dataset_matches_jax(tmp_path, stream, share):
+    """infer_dataset over PNG files (4 rows, 3 images, a partial last batch)
+    writes the JAX package's two JSONL files with the same rows: completions,
+    labels and pixel boxes equal, scores within 1e-4; fixed batches
+    (run_batch) and the serve engine (run_stream, with and without shared
+    image prefixes)."""
+    import json
+
+    import PIL.Image
+
+    cfg, jp, _ = tiny_params(4)
+    jp["proto"]["ln_w"] = jnp.ones_like(jp["proto"]["ln_w"])
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    rng = np.random.RandomState(9)
+    paths = []
+    for i, (w, h) in enumerate([(168, 112), (140, 112), (168, 112)]):
+        paths.append(str(tmp_path / f"img{i}.png"))
+        PIL.Image.fromarray(rng.randint(0, 256, (h, w, 3)).astype(np.uint8)).save(paths[-1])
+    rows = [
+        {"id": 1, "image_path": paths[0], "problem": 'find "a"'},
+        {"id": 2, "image_path": [paths[1]], "problem": 'find "b"'},
+        {"id": 3, "image_path": paths[0], "problem": "what is it"},
+        {"id": 4, "image_path": paths[2], "problem": 'find "c"'},
+    ]
+    kw = dict(max_new_tokens=6, canvas_hw=(9, 9), compute_mask=False, compact_pixels=False)
+    run = dict(batch_size=3, prompt_bucket=128, stream=stream, share_prefix=share, n_slots=2, prefill_bucket=1, chunk_steps=3)
+    jfiles = JaxInferDataset(JaxEngine(jp, cfg, tiny_processor(cfg), **kw), rows, str(tmp_path / "jax"), **run)
+    tfiles = TH.infer_dataset(TH.InferenceEngine(tp, cfg, tiny_processor(cfg), **kw), rows, str(tmp_path / "port"), **run)
+    for jf, tf in zip(jfiles, tfiles):
+        assert os.path.basename(jf) == os.path.basename(tf)
+        jl, tl = ([json.loads(x) for x in open(f)] for f in (jf, tf))
+        assert len(tl) == len(jl) and len(tl) >= 4
+        for a, b in zip(tl, jl):
+            sa, sb = a.pop("score", 0.0), b.pop("score", 0.0)
+            assert abs(sa - sb) <= 1e-4 and a == b

@@ -122,3 +122,112 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         C.window_slot_attn(qb[:, :40], qb[:, :40], qb[:, :40], seg[:, :40], 0.25)
     with pytest.raises(ValueError, match="head dim"):
         C.segment_flash_fwd(qb[..., :8], qb[..., :8], qb[..., :8], seg, seg, False, 0.25)
+
+
+# ---------------------------------------------------------------------------
+# int8 KV cache kernels (H4 int8_decode_attn, H5 int8_verify_attn, H6
+# store_kv_rows) vs their twins in padt_tpu_torch.ops.cuda_kv
+# ---------------------------------------------------------------------------
+
+
+def _int8_cache(g, dev, nl, b, hkv, c, hd, kq):
+    """Random int8 cache (L, B, Hkv, C, hd) with fp32 scales, kq fresh rows."""
+    i8 = lambda *s: torch.randint(-127, 128, s, generator=g, device=dev, dtype=torch.int8)
+    sc = lambda *s: torch.exp(torch.randn(s, generator=g, device=dev) * 0.4 - 4.0)
+    return (i8(nl, b, hkv, c, hd), sc(nl, b, hkv, c), i8(nl, b, hkv, c, hd), sc(nl, b, hkv, c),
+            i8(b, hkv, kq, hd), sc(b, hkv, kq), i8(b, hkv, kq, hd), sc(b, hkv, kq))
+
+
+def _valid_patterns(b, c, dev):
+    """One slot per pattern: left padding, an unwritten tail, one live row,
+    no live row (only the fresh columns), every row live."""
+    v = torch.zeros((b, c), dtype=torch.bool, device=dev)
+    v[0, 17 : c // 2] = True
+    v[1, : c - 3] = True
+    v[2, 5] = True
+    v[4:] = True
+    return v
+
+
+@pytest.mark.parametrize("b,c,hd", [(5, 197, 128), (16, 768, 128), (5, 131, 64), (5, 7, 128)])
+def test_int8_decode_attn_matches_plain(dev, b, c, hd):
+    """Odd capacities (C = 7: some CTAs of a cluster own no column), every
+    valid pattern; b=16 is the serve pool's shape."""
+    from padt_tpu_torch.ops import cuda_kv as K
+
+    g = torch.Generator(device=dev).manual_seed(c)
+    nl, hkv, gq, layer = 3, 2, 8, 1
+    k8, ks, v8, vs, kn, ksn, vn, vsn = _int8_cache(g, dev, nl, b, hkv, c, hd, 1)
+    q = _randn(g, (b, hkv, gq, hd), dev)
+    valid = _valid_patterns(b, c, dev)
+    n0 = K.launch_counts["int8_decode_attn"]
+    out = K.int8_decode_attn(q, k8, ks, v8, vs, kn, ksn, vn, vsn, valid, layer)
+    torch.cuda.synchronize()
+    assert K.launch_counts["int8_decode_attn"] == n0 + 1
+    ref = K.int8_decode_attn_plain(q, k8, ks, v8, vs, kn, ksn, vn, vsn, valid, layer)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert _err(out, ref) < TOL
+
+
+@pytest.mark.parametrize("b,c,kq", [(5, 197, 1), (5, 197, 4), (8, 768, 32), (3, 131, 32), (3, 131, 16), (5, 7, 4)])
+def test_int8_verify_attn_matches_plain(dev, b, c, kq):
+    """kq in {1, 4, 32} (decode width, speculative verify, suffix pass), odd
+    capacities, every valid pattern; rows head-major r = gi * kq + i. The
+    shapes give column splits (CTAs per cluster) of 8, 1, 2 and 4."""
+    from padt_tpu_torch.ops import cuda_kv as K
+
+    g = torch.Generator(device=dev).manual_seed(kq + c)
+    nl, hkv, gq, hd, layer = 2, 2, 8, 128, 1
+    k8, ks, v8, vs, kn, ksn, vn, vsn = _int8_cache(g, dev, nl, b, hkv, c, hd, kq)
+    q = _randn(g, (b, hkv, gq * kq, hd), dev)
+    valid = _valid_patterns(b, c, dev)
+    out = K.int8_verify_attn(q, k8, ks, v8, vs, kn, ksn, vn, vsn, valid, layer, kq)
+    torch.cuda.synchronize()
+    ref = K.int8_verify_attn_plain(q, k8, ks, v8, vs, kn, ksn, vn, vsn, valid, layer, kq)
+    assert out.shape == q.shape
+    assert _err(out, ref) < TOL
+
+
+@pytest.mark.parametrize("kq", [1, 5, 32])
+def test_store_kv_rows_matches_plain(dev, kq):
+    """n_rows in {0, partial, kq}, positions at 0, mid-cache, at the callers'
+    clamp C - kq and past C - kq (rows beyond C dropped): byte-identical to
+    the twin, and a slot with n_rows 0 keeps every byte."""
+    from padt_tpu_torch.ops import cuda_kv as K
+
+    g = torch.Generator(device=dev).manual_seed(kq)
+    nl, b, hkv, c, hd = 4, 6, 2, 131, 128
+    cache = _int8_cache(g, dev, nl, b, hkv, c, hd, 1)[:4]
+    new = _int8_cache(g, dev, nl, b, hkv, kq, hd, 1)[:4]  # (L, B, Hkv, kq, hd) rows, (L, B, Hkv, kq) scales
+    pos = torch.tensor([0, 40, c - kq, c - kq, c - 1, 77], dtype=torch.int32, device=dev)
+    n_rows = torch.tensor([kq, max(kq // 2, 1), kq, 0, kq, 0], dtype=torch.int32, device=dev)
+    got = [t.clone() for t in cache]
+    ref = [t.clone() for t in cache]
+    K.store_kv_rows(*got, *new, pos, n_rows)
+    torch.cuda.synchronize()
+    K.store_kv_rows_plain(*ref, *new, pos, n_rows)
+    for a, r, name in zip(got, ref, ("k8", "ks", "v8", "vs")):
+        assert torch.equal(a, r), name
+    for s in (3, 5):
+        for a, before in zip(got, cache):
+            assert torch.equal(a[:, s], before[:, s])
+    assert torch.equal(got[0][:, 2, :, c - kq :], new[0][:, 2])
+
+
+def test_int8_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from padt_tpu_torch.ops import cuda_kv as K
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    k8, ks, v8, vs, kn, ksn, vn, vsn = _int8_cache(g, dev, 1, 2, 2, 64, 128, 1)
+    valid = torch.ones((2, 64), dtype=torch.bool, device=dev)
+    q = _randn(g, (2, 2, 8, 128), dev)
+    with pytest.raises(ValueError, match="bf16"):
+        K.int8_decode_attn(q.float(), k8, ks, v8, vs, kn, ksn, vn, vsn, valid, 0)
+    with pytest.raises(ValueError, match="layer"):
+        K.int8_decode_attn(q, k8, ks, v8, vs, kn, ksn, vn, vsn, valid, 1)
+    with pytest.raises(ValueError, match="multiple of kq"):
+        K.int8_verify_attn(q[:, :, :7].contiguous(), k8, ks, v8, vs, kn, ksn, vn, vsn, valid, 0, 2)
+    pos = torch.zeros(2, dtype=torch.int32, device=dev)
+    rows = [t[None].expand(1, *t.shape).contiguous() for t in (kn, ksn, vn, vsn)]
+    with pytest.raises(ValueError, match="int32"):
+        K.store_kv_rows(k8, ks, v8, vs, *rows, pos.long(), pos)
