@@ -7,12 +7,18 @@ Builds the port's CUDA kernels from `padt_tpu_torch/csrc` (nvcc, sm_90a,
 one process per source, into build/padt_tpu_torch/), then:
   1. prints the card (nvidia-smi name and power limit, torch device name);
   2. holds each kernel against its plain PyTorch twin at the shapes the main
-     paths give it (bf16 attention outputs: max abs error over all rows,
-     tolerance 2e-2, bf16 output rounding plus a different order of sums;
-     the int8 row store: byte-identical), and times both with CUDA events;
+     paths give it, PaDT-3B's and PaDT-7B's (bf16 attention outputs: max abs
+     error over all rows, tolerance 2e-2, bf16 output rounding plus a
+     different order of sums; the int8 row store: byte-identical), and times
+     the kernel, the twin and, where one exists, the one PyTorch call that
+     computes the same function, with CUDA events, beside the kernel's bound
+     (the larger of its bytes over 3.35 TB/s and its operations over the
+     peak rate of their type);
   3. checks the vision tower, bf16 prefill, int8 prefill, one int8 suffix
      pass and one int8 decode step of a tiny model on the card against the
-     plain float32 CPU path;
+     plain float32 CPU path, with dense bf16 weights and again with int8
+     weights (`quantize_params` + `pack_inference_params` run on the card,
+     every text-layer product through H7);
   4. runs PaDT-3B REC inference through `InferenceEngine.run_batch` (random
      weights from a seeded generator, 4 prompts over 644px-class images of
      46x46 patches, 32 new tokens, bf16 KV) with the launch counters reset
@@ -26,14 +32,24 @@ one process per source, into build/padt_tpu_torch/), then:
      counters reset just before and read just after; checks the outputs and
      the launch floors, and prints wall, device prefill / decode seconds,
      decode tok/s and slot utilization;
-  6. prints the kernels' JSON line, then the result line
+  6. [7b]: frees PaDT-3B, builds PaDT-7B at full depth and width with int8
+     packed text-layer weights on the card (`init_padt_params_quantized`,
+     seeded), holds H7 against its twin at the 7B products' shapes (M = 8
+     decode rows and M = 2560 prefill rows, walking the 28 layers' weights),
+     then runs `run_batch` of 4 REC queries (bf16 KV) and `run_stream` of 16
+     requests (int8 KV, 8 slots, bucket 4, prompt 640, 32 new tokens), each
+     with the launch counters reset before and read after, checks the
+     outputs and the launch floors, and prints the times;
+  7. prints the kernels' JSON line, then the result line
      {"ok": true, "device": {...}} last.
 Any failure raises, and the script exits non-zero without the result line.
-It needs CUDA; it imports nothing of JAX.
+It needs CUDA; it imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import gc
+import itertools
 import json
 import os
 import subprocess
@@ -55,6 +71,10 @@ SERVE_REQUESTS = 16
 SERVE_BUCKET = 4  # requests per admission (prefill) bucket
 KV_SLOTS, KV_CAP = 16, 768  # int8 kernel lines: a 16-slot pool, capacity 640 + 32 rounded to 128
 SUFFIX_K = 32  # rows of a suffix pass (H5's kq, H6's widest store)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+BF16_TENSOR_FLOPS = 989e12  # dense bf16 tensor-core peak
+FP32_FLOPS = 67e12  # fp32 outside the tensor cores
+L2_WALK_BYTES = 150e6  # weight bytes a timing walk cycles through: three times the 50 MB L2
 
 
 def log(*a):
@@ -80,6 +100,18 @@ def cuda_ms(fn, iters=10, warmup=2, hide_host=True):
     return e0.elapsed_time(e1) / iters
 
 
+def bound_ms(n_bytes, ops, peak):
+    """(ms, "bytes" or "operations"): the least time of the work on the card,
+    its bytes over the HBM rate or its operations over `peak`, whichever is
+    larger."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / peak
+    return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -91,13 +123,158 @@ def phase_device():
     return name, smi
 
 
+def _visible_pairs(q_seg, k_seg, causal):
+    """(query, key) pairs the attention kernels score: segments equal and
+    the key's segment >= 0 (and key <= query when causal)."""
+    m = (q_seg[:, :, None] == k_seg[:, None, :]) & (k_seg[:, None, :] >= 0)
+    if causal:
+        m &= torch.ones(m.shape[1:], dtype=torch.bool, device=m.device).tril()
+    return int(m.sum()), m
+
+
+def _sdpa(q, k, v, mask, scale, gqa=False):
+    """The one PyTorch call for the attention yardstick: (B, S, H, hd) views
+    in, boolean mask (B, 1, Sq, Sk). It differs from the kernels on a row
+    with no visible key (NaN there, 0 in the kernels), so it is timed only."""
+    import torch.nn.functional as F
+
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale, enable_gqa=gqa)
+
+
+def measure(cases, card):
+    """Each case: its kernel vs its twin (max abs error within tol), then the
+    kernel, the twin and the library call timed. Returns the JSON entries."""
+    entries = []
+    for c in cases:
+        out, ref = c["kern"](), c["plain"]()
+        torch.cuda.synchronize()
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        refs = ref if isinstance(ref, (tuple, list)) else (ref,)
+        err = max((a.float() - r.float()).abs().max().item() for a, r in zip(outs, refs))
+        tol = c["tol"] * (max(r.float().abs().max().item() for r in refs) if c.get("relative") else 1.0)
+        if not err <= tol:
+            raise AssertionError(f"{c['name']} [{c['shape']}]: max abs err {err} > {tol}")
+        ms, plain_ms = cuda_ms(c["kern"]), cuda_ms(c["plain"])
+        lib_ms = cuda_ms(c["library"]) if c.get("library") else None  # a yardstick: the port never calls it
+        b_ms, b_by = bound_ms(*c["bound"])
+        lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
+        log(f"[kernel] {c['name']} [{c['shape']}]: max_abs_err {err:.3e} (tol {tol:.3e}), kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, library {lib_txt}, bound {b_ms:.4f} ms ({b_by}) ({card})")
+        entries.append({
+            "name": c["name"], "route": "cuda", "source": f"padt_tpu_torch/csrc/{c['source']}",
+            "replaces": c["replaces"], "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "shape": c["shape"], "path": c["path"],
+        })
+    return entries
+
+
+def _int8_attn_cases(dev, g, rnd, nl, slots, hkv, gq, hd, cap, path, tag, with_verify):
+    """H4 (and H5) over an int8 cache of `nl` layers that the calls walk in
+    turn, one per call, as a decode step does: the cache cycles through the
+    50 MB L2, so each call reads its layer from HBM, as on the main path;
+    then H6's decode store (and its suffix store)."""
+    from padt_tpu_torch.ops import cuda_kv as K
+
+    i8 = lambda *shape: torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+    sc = lambda *shape: torch.exp(torch.randn(shape, generator=g, device=dev) * 0.4 - 4.0)
+    kv = lambda *lead: (i8(*lead, hd), sc(*lead), i8(*lead, hd), sc(*lead))  # (k8, ks, v8, vs)
+    cache = kv(nl, slots, hkv, cap)
+    lens = torch.randint(PROMPT_LEN - 100, cap - SUFFIX_K, (slots,), generator=g, device=dev)
+    valid = torch.arange(cap, device=dev)[None, :] < lens[:, None]
+    valid[:, :40] = False  # left padding
+    live = valid.sum(dim=1)
+    fresh1, fresh32 = kv(slots, hkv, 1), kv(slots, hkv, SUFFIX_K)
+    qd, qv = rnd(slots, hkv, gq, hd), rnd(slots, hkv, gq * SUFFIX_K, hd)
+    rows1, rows32 = kv(nl, slots, hkv, 1), kv(nl, slots, hkv, SUFFIX_K)
+    pos = lens.int()
+    one = torch.ones(slots, dtype=torch.int32, device=dev)
+    n32 = torch.randint(0, SUFFIX_K + 1, (slots,), generator=g, device=dev, dtype=torch.int32)
+    n32[:2] = torch.tensor([0, SUFFIX_K], dtype=torch.int32, device=dev)
+    kbuf, pbuf = [t.clone() for t in cache], [t.clone() for t in cache]  # the stores write in place
+    layer_bytes = nbytes(*cache) // nl
+
+    def walk(fn, *head, tail=()):
+        """fn(*head, layer, *tail) over layers 0, 1, ...: the kernel's and the
+        twin's first calls (the comparison) both read layer 0."""
+        nxt = itertools.cycle(range(nl)).__next__
+        return lambda: fn(*head, nxt(), *tail)
+
+    def store(fn, buf, rows, n):
+        return lambda: (fn(*buf, *rows, pos, n), buf)[1]
+
+    def store_bytes(n_rows):  # each written row read from the new rows once and written once
+        return 2 * int(n_rows.sum()) * nl * hkv * (2 * hd + 8)
+
+    attn_ops = lambda q_rows, cols: 4 * hd * hkv * q_rows * cols
+    cases = [dict(
+        name="int8_decode_attn", path=path, source="int8_kv.cu", replaces="padt_tpu/ops/kv_cache.py:206", tol=TOL,
+        shape=f"{tag}decode {slots} slots x {hkv} kv heads x {gq} q x{hd}, int8 cache {nl}x{cap} (layers in turn), 1 fresh column",
+        kern=walk(K.int8_decode_attn, qd, *cache, *fresh1, valid), plain=walk(K.int8_decode_attn_plain, qd, *cache, *fresh1, valid),
+        bound=(layer_bytes + nbytes(qd, *fresh1, valid) + nbytes(qd), attn_ops(gq, int(live.sum()) + slots), FP32_FLOPS),
+    )]
+    if with_verify:
+        cases.append(dict(
+            name="int8_verify_attn", path=path, source="int8_kv.cu", replaces="padt_tpu/ops/kv_cache.py:402", tol=TOL,
+            shape=f"{tag}suffix pass {slots} slots x {hkv} kv heads x ({gq}x{SUFFIX_K}) q x{hd}, int8 cache {nl}x{cap} (layers in turn), {SUFFIX_K} fresh columns",
+            kern=walk(K.int8_verify_attn, qv, *cache, *fresh32, valid, tail=(SUFFIX_K,)),
+            plain=walk(K.int8_verify_attn_plain, qv, *cache, *fresh32, valid, tail=(SUFFIX_K,)),
+            bound=(layer_bytes + nbytes(qv, *fresh32, valid) + nbytes(qv),
+                   attn_ops(gq * SUFFIX_K, int(live.sum())) + attn_ops(gq, slots * SUFFIX_K * (SUFFIX_K + 1) // 2), FP32_FLOPS),
+        ))
+    cases.append(dict(
+        name="store_kv_rows", path=path, source="int8_kv.cu", replaces="padt_tpu/ops/kv_cache.py:750", tol=0.0,
+        shape=f"{tag}decode store: 1 row per slot x {nl} layers x {slots} slots x {hkv} kv heads, capacity {cap}",
+        kern=store(K.store_kv_rows, kbuf, rows1, one), plain=store(K.store_kv_rows_plain, pbuf, rows1, one),
+        bound=(store_bytes(one), 0, FP32_FLOPS),
+    ))
+    if with_verify:
+        cases.append(dict(
+            name="store_kv_rows", path=path, source="int8_kv.cu", replaces="padt_tpu/ops/kv_cache.py:856", tol=0.0,
+            shape=f"{tag}suffix store: n_rows in [0, {SUFFIX_K}] per slot x {nl} layers x {slots} slots x {hkv} kv heads",
+            kern=store(K.store_kv_rows, kbuf, rows32, n32), plain=store(K.store_kv_rows_plain, pbuf, rows32, n32),
+            bound=(store_bytes(n32), 0, FP32_FLOPS),
+        ))
+    return cases
+
+
+def _text_cases(dev, rnd, b, h, hkv, hd, path, tag):
+    """H1 on the text q/k and H2 on a causal GQA prefill of a `b`-row bucket
+    of 640 tokens, row 0 left-padded by 100 tokens."""
+    from padt_tpu_torch.ops import cuda_attention as C
+    from padt_tpu_torch.ops.rope import mrope_cos_sin
+
+    l = PROMPT_LEN
+    pos = torch.arange(l, device=dev)[None].expand(b, l) - torch.tensor([[100]] + [[0]] * (b - 1), device=dev)
+    tcos, tsin = mrope_cos_sin(pos.clamp(min=0)[None].expand(3, b, l), hd, (16, 24, 24))
+    tq, tk, tv = rnd(b, l, h * hd), rnd(b, l, hkv, hd), rnd(b, l, hkv, hd)
+    tseg = ((pos >= 0).int() - 1).contiguous()  # row 0 left-padded by 100 tokens: seg -1
+    q4 = tq.unflatten(-1, (h, hd))
+    pairs, mask = _visible_pairs(tseg, tseg, True)
+    return [
+        dict(name="rope_qk", path=path, source="rope_qk.cu", replaces="padt_tpu/ops/pallas_attention.py:574", tol=TOL,
+             shape=f"{tag}text {b}x{l}x({h}+{hkv})x{hd}",
+             kern=lambda: C.rope_qk(tq, tk.flatten(2), tcos, tsin, h, hkv),
+             plain=lambda: C.rope_qk_plain(tq, tk.flatten(2), tcos, tsin, h, hkv),
+             bound=(2 * nbytes(tq, tk) + nbytes(tcos, tsin), 3 * (tq.numel() + tk.numel()), FP32_FLOPS)),
+        dict(name="segment_flash_fwd", path=path, source="segment_flash.cu", replaces="padt_tpu/ops/pallas_attention.py:65", tol=TOL,
+             shape=f"{tag}text prefill causal GQA {b}x{l}, {h}/{hkv} heads x{hd}, left pad 100",
+             kern=lambda: C.segment_flash_fwd(q4, tk, tv, tseg, tseg, True, hd**-0.5),
+             plain=lambda: C.segment_flash_plain(q4, tk, tv, tseg, tseg, True, hd**-0.5),
+             library=_sdpa(q4, tk, tv, mask[:, None], hd**-0.5, gqa=True),
+             bound=(2 * nbytes(tq) + nbytes(tk, tv, tseg), 4 * hd * h * pairs, BF16_TENSOR_FLOPS)),
+    ]
+
+
 def phase_kernels(dev, card):
-    """Each kernel vs its twin at main-path shapes; one entry per TPU kernel replaced."""
-    from padt_tpu.models.vision_geom import vision_geometry
+    """Each kernel vs its twin at main-path shapes (PaDT-3B's, and PaDT-7B's
+    where its head counts differ); H7's lines come with the 7B weights in
+    phase_7b. One entry per (kernel, shape)."""
+    from padt_tpu_torch import padt_3b, padt_7b
+    from padt_tpu_torch.models.vision_geom import vision_geometry
     from padt_tpu_torch.ops import _build
     from padt_tpu_torch.ops import cuda_attention as C
-    from padt_tpu_torch.ops import cuda_kv as K
-    from padt_tpu_torch.ops.rope import mrope_cos_sin, vision_rope_cos_sin
+    from padt_tpu_torch.ops.rope import vision_rope_cos_sin
 
     t0 = time.perf_counter()
     _build.load_library()
@@ -113,106 +290,47 @@ def phase_kernels(dev, card):
     b, s, h, hd = 2, PATCHES, 16, 80
     qkv = rnd(b, s, 3 * h * hd)
     vq, vk, vv = (qkv[..., i * h * hd : (i + 1) * h * hd] for i in range(3))
-    l, th, tkv, thd = PROMPT_LEN, 16, 2, 128
-    pos = torch.arange(l, device=dev)[None].expand(b, l) - torch.tensor([[100], [0]], device=dev)
-    tcos, tsin = mrope_cos_sin(pos.clamp(min=0)[None].expand(3, b, l), thd, (16, 24, 24))
-    tq, tk, tv = rnd(b, l, th * thd), rnd(b, l, tkv, thd), rnd(b, l, tkv, thd)
-    tseg = (pos >= 0).int() - 1  # row 0 left-padded by 100 tokens: seg -1
     vqr, vkr = C.rope_qk(vq, vk, vcos, vsin, h, h)
     u = lambda t: t.unflatten(-1, (h, hd))
+    full_pairs, full_mask = _visible_pairs(seg_full, seg_full, False)
+    win = torch.arange(s, device=dev) // C.WINDOW
+    win_mask = (win[:, None] == win[None, :])[None] & (seg_win[:, None, :] >= 0)
+    win_pairs = int(win_mask.sum())
+    vis_bytes = 4 * nbytes(vq) + nbytes(seg_full)
 
-    # the int8 serve path: 36 layers of a 16-slot pool, capacity 768, each
-    # slot with its own live length; H4 reads one layer with one fresh column,
-    # H5 the same with kq = 32 (a suffix pass), H6 lands every layer's rows.
-    # H4 / H5 (and their twins) walk the layers in turn, one per call, as a
-    # decode step does: the 226 MB cache cycles through the 50 MB L2, so each
-    # call reads its layer from HBM, as on the main path
-    import itertools
-
-    from padt_tpu.config import padt_3b
-
-    nl, slots, cap, gq = padt_3b().text.num_hidden_layers, KV_SLOTS, KV_CAP, th // tkv
-    i8 = lambda *shape: torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
-    sc = lambda *shape: torch.exp(torch.randn(shape, generator=g, device=dev) * 0.4 - 4.0)
-    kv = lambda *lead: (i8(*lead, thd), sc(*lead), i8(*lead, thd), sc(*lead))  # (k8, ks, v8, vs)
-    cache = kv(nl, slots, tkv, cap)
-    lens = torch.randint(PROMPT_LEN - 100, cap - SUFFIX_K, (slots,), generator=g, device=dev)
-    valid = torch.arange(cap, device=dev)[None, :] < lens[:, None]
-    valid[:, :40] = False  # left padding
-    fresh1, fresh32 = kv(slots, tkv, 1), kv(slots, tkv, SUFFIX_K)
-    qd, qv = rnd(slots, tkv, gq, thd), rnd(slots, tkv, gq * SUFFIX_K, thd)
-    rows1, rows32 = kv(nl, slots, tkv, 1), kv(nl, slots, tkv, SUFFIX_K)
-    pos = lens.int()
-    one = torch.ones(slots, dtype=torch.int32, device=dev)
-    n32 = torch.randint(0, SUFFIX_K + 1, (slots,), generator=g, device=dev, dtype=torch.int32)
-    n32[:2] = torch.tensor([0, SUFFIX_K], dtype=torch.int32, device=dev)
-    kbuf, pbuf = [t.clone() for t in cache], [t.clone() for t in cache]  # the stores write in place
-
-    def walk(fn, *head, tail=()):
-        """fn(*head, layer, *tail) over layers 0, 1, ...: the kernel's and the
-        twin's first calls (the comparison) both read layer 0."""
-        nxt = itertools.cycle(range(nl)).__next__
-        return lambda: fn(*head, nxt(), *tail)
-
-    def store(fn, buf, rows, n):
-        return lambda: (fn(*buf, *rows, pos, n), buf)[1]
-
+    c3, c7 = padt_3b().text, padt_7b().text
     cases = [
-        ("rope_qk", "vision 2x2304x(16+16)x80, q/k views of the fused qkv", "padt_tpu/ops/pallas_attention.py:700", TOL,
-         lambda: C.rope_qk(vq, vk, vcos, vsin, h, h), lambda: C.rope_qk_plain(vq, vk, vcos, vsin, h, h)),
-        ("rope_qk", "text 2x640x(16+2)x128", "padt_tpu/ops/pallas_attention.py:574", TOL,
-         lambda: C.rope_qk(tq, tk.flatten(2), tcos, tsin, th, tkv),
-         lambda: C.rope_qk_plain(tq, tk.flatten(2), tcos, tsin, th, tkv)),
-        ("segment_flash_fwd", "text prefill causal GQA 2x640, 16/2 heads x128, left pad 100", "padt_tpu/ops/pallas_attention.py:65", TOL,
-         lambda: C.segment_flash_fwd(tq.unflatten(-1, (th, thd)), tk, tv, tseg, tseg, True, thd**-0.5),
-         lambda: C.segment_flash_plain(tq.unflatten(-1, (th, thd)), tk, tv, tseg, tseg, True, thd**-0.5)),
-        ("segment_flash_fwd", "vision full layer 2x2304x16x80 on seg_full", "padt_tpu/ops/pallas_attention.py:769", TOL,
-         lambda: C.segment_flash_fwd(u(vqr), u(vkr), u(vv), seg_full, seg_full, False, hd**-0.5),
-         lambda: C.segment_flash_plain(u(vqr), u(vkr), u(vv), seg_full, seg_full, False, hd**-0.5)),
-        ("window_slot_attn", "vision windowed layer 2x2304x16x80 on seg_win", "padt_tpu/ops/pallas_attention.py:860", TOL,
-         lambda: C.window_slot_attn(u(vqr), u(vkr), u(vv), seg_win, hd**-0.5),
-         lambda: C.window_slot_plain(u(vqr), u(vkr), u(vv), seg_win, hd**-0.5)),
-        ("int8_decode_attn", f"decode {slots} slots x 2 kv heads x 8 q x128, int8 cache {nl}x{cap} (layers in turn), 1 fresh column",
-         "padt_tpu/ops/kv_cache.py:206", TOL,
-         walk(K.int8_decode_attn, qd, *cache, *fresh1, valid), walk(K.int8_decode_attn_plain, qd, *cache, *fresh1, valid)),
-        ("int8_verify_attn", f"suffix pass {slots} slots x 2 kv heads x (8x{SUFFIX_K}) q x128, int8 cache {nl}x{cap} (layers in turn), {SUFFIX_K} fresh columns",
-         "padt_tpu/ops/kv_cache.py:402", TOL,
-         walk(K.int8_verify_attn, qv, *cache, *fresh32, valid, tail=(SUFFIX_K,)),
-         walk(K.int8_verify_attn_plain, qv, *cache, *fresh32, valid, tail=(SUFFIX_K,))),
-        ("store_kv_rows", f"decode store: 1 row per slot x {nl} layers x {slots} slots x 2 kv heads, capacity {cap}",
-         "padt_tpu/ops/kv_cache.py:750", 0.0,
-         store(K.store_kv_rows, kbuf, rows1, one), store(K.store_kv_rows_plain, pbuf, rows1, one)),
-        ("store_kv_rows", f"suffix store: n_rows in [0, {SUFFIX_K}] per slot x {nl} layers x {slots} slots x 2 kv heads",
-         "padt_tpu/ops/kv_cache.py:856", 0.0,
-         store(K.store_kv_rows, kbuf, rows32, n32), store(K.store_kv_rows_plain, pbuf, rows32, n32)),
+        dict(name="rope_qk", path="3b_batch", source="rope_qk.cu", replaces="padt_tpu/ops/pallas_attention.py:700", tol=TOL,
+             shape="vision 2x2304x(16+16)x80, q/k views of the fused qkv",
+             kern=lambda: C.rope_qk(vq, vk, vcos, vsin, h, h), plain=lambda: C.rope_qk_plain(vq, vk, vcos, vsin, h, h),
+             bound=(2 * nbytes(vq, vk) + nbytes(vcos, vsin), 3 * 2 * vq.numel(), FP32_FLOPS)),
+        *_text_cases(dev, rnd, 2, c3.num_attention_heads, c3.num_key_value_heads, c3.head_dim, "3b_batch", ""),
+        dict(name="segment_flash_fwd", path="3b_batch", source="segment_flash.cu", replaces="padt_tpu/ops/pallas_attention.py:769", tol=TOL,
+             shape="vision full layer 2x2304x16x80 on seg_full",
+             kern=lambda: C.segment_flash_fwd(u(vqr), u(vkr), u(vv), seg_full, seg_full, False, hd**-0.5),
+             plain=lambda: C.segment_flash_plain(u(vqr), u(vkr), u(vv), seg_full, seg_full, False, hd**-0.5),
+             library=_sdpa(u(vqr), u(vkr), u(vv), full_mask[:, None], hd**-0.5),
+             bound=(vis_bytes, 4 * hd * h * full_pairs, BF16_TENSOR_FLOPS)),
+        dict(name="window_slot_attn", path="3b_batch", source="window_attn.cu", replaces="padt_tpu/ops/pallas_attention.py:860", tol=TOL,
+             shape="vision windowed layer 2x2304x16x80 on seg_win",
+             kern=lambda: C.window_slot_attn(u(vqr), u(vkr), u(vv), seg_win, hd**-0.5),
+             plain=lambda: C.window_slot_plain(u(vqr), u(vkr), u(vv), seg_win, hd**-0.5),
+             library=_sdpa(u(vqr), u(vkr), u(vv), win_mask[:, None], hd**-0.5),
+             bound=(vis_bytes, 4 * hd * h * win_pairs, BF16_TENSOR_FLOPS)),
+        *_int8_attn_cases(dev, g, rnd, c3.num_hidden_layers, KV_SLOTS, c3.num_key_value_heads,
+                          c3.num_attention_heads // c3.num_key_value_heads, c3.head_dim, KV_CAP, "3b_serve", "", True),
+        # PaDT-7B: 28 q / 4 kv heads (G = 7), a 4-row prefill bucket, an 8-slot pool of 28 layers
+        *_text_cases(dev, rnd, BATCH, c7.num_attention_heads, c7.num_key_value_heads, c7.head_dim, "7b", "7B "),
+        *_int8_attn_cases(dev, g, rnd, c7.num_hidden_layers, SERVE_SLOTS, c7.num_key_value_heads,
+                          c7.num_attention_heads // c7.num_key_value_heads, c7.head_dim, KV_CAP, "7b", "7B ", False),
     ]
-    sources = {
-        "rope_qk": "rope_qk.cu", "segment_flash_fwd": "segment_flash.cu", "window_slot_attn": "window_attn.cu",
-        "int8_decode_attn": "int8_kv.cu", "int8_verify_attn": "int8_kv.cu", "store_kv_rows": "int8_kv.cu",
-    }
-    entries = []
-    for name, shape, replaces, tol, kern, plain in cases:
-        out, ref = kern(), plain()
-        torch.cuda.synchronize()
-        outs = out if isinstance(out, (tuple, list)) else (out,)
-        refs = ref if isinstance(ref, (tuple, list)) else (ref,)
-        err = max((a.float() - r.float()).abs().max().item() for a, r in zip(outs, refs))
-        if not err <= tol:
-            raise AssertionError(f"{name} [{shape}]: max abs err {err} > {tol}")
-        ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
-        log(f"[kernel] {name} [{shape}]: max_abs_err {err:.3e} (tol {tol}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({card})")
-        entries.append({
-            "name": name, "route": "cuda", "source": f"padt_tpu_torch/csrc/{sources[name]}",
-            "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "shape": shape,
-        })
-    return entries
+    return measure(cases, card)
 
 
 def _u8_image(seed):
     import numpy as np
 
-    from padt_tpu.preprocess.vision_process import ProcessedImage
+    from padt_tpu_torch.preprocess.vision_process import ProcessedImage
 
     t, gh, gw = GRID
     rows = np.random.RandomState(seed).randint(0, 256, (t * gh * gw, 3 * 14 * 14)).astype(np.uint8)
@@ -234,11 +352,26 @@ PROMPTS = [
 ]
 
 
+def _counters():
+    """The kernel wrappers' modules, each with launch_counts and
+    reset_launch_counts."""
+    from padt_tpu_torch.ops import cuda_attention, cuda_kv, cuda_quant
+
+    return [cuda_attention, cuda_kv, cuda_quant]
+
+
+def _processor(cfg):
+    from padt_tpu_torch.utils.mock_tokenizer import make_full_tokenizer
+    from padt_tpu_torch.vrt.processor import VisionTextProcessor
+
+    proc = VisionTextProcessor(make_full_tokenizer(cfg), cfg)
+    proc.prepare(cfg.text.vocab_size)
+    return proc
+
+
 def load_3b(dev):
     """PaDT-3B at full depth and width, random bf16 weights from a seed."""
-    from padt_tpu.config import padt_3b
-    from padt_tpu.utils.mock_tokenizer import make_full_tokenizer
-    from padt_tpu.vrt.processor import VisionTextProcessor
+    from padt_tpu_torch import padt_3b
     from padt_tpu_torch.models import padt as P
 
     cfg = padt_3b()
@@ -249,30 +382,33 @@ def load_3b(dev):
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in model.state_dict().values())
     log(f"[slice] padt_3b random weights: {n_params / 1e9:.3f} B params bf16 in {time.perf_counter() - t0:.1f} s")
-    proc = VisionTextProcessor(make_full_tokenizer(cfg), cfg)
-    proc.prepare(cfg.text.vocab_size)
-    return cfg, model, proc
+    return cfg, model, _processor(cfg)
 
 
-def phase_slice(dev, card, cfg, model, proc):
-    """PaDT-3B REC through run_batch; returns the kernels' launch counts."""
+def phase_run_batch(tag, dev, card, cfg, params, proc):
+    """run_batch of BATCH REC queries with the launch counters reset just
+    before and read just after; then generate, vision and prefill timed
+    through the same public functions, and every output checked for shape
+    and finiteness. Returns the launch counts of run_batch."""
     from padt_tpu_torch.eval.harness import InferenceEngine
     from padt_tpu_torch.models import language
     from padt_tpu_torch.models import padt as P
-    from padt_tpu_torch.ops import cuda_attention as C
+
+    counters = _counters()
 
     prompts = PROMPTS[:BATCH]
     images = [_u8_image(i) for i in range(BATCH)]
-    engine = InferenceEngine(model.params, cfg, proc, max_new_tokens=NEW_TOKENS)
+    engine = InferenceEngine(params, cfg, proc, max_new_tokens=NEW_TOKENS)
 
-    C.reset_launch_counts()
+    for c in counters:
+        c.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = engine.run_batch(prompts, images, prompt_bucket=PROMPT_LEN)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(C.launch_counts)
-    log(f"[slice] run_batch of {BATCH} REC queries: {wall:.3f} s wall ({card}); launches {counts}")
+    counts = {k: v for c in counters for k, v in c.launch_counts.items()}
+    log(f"[{tag}] run_batch of {BATCH} REC queries: {wall:.3f} s wall ({card}); launches {counts}")
     vc, tc = cfg.vision, cfg.text
     if len(results) != BATCH or not all(isinstance(r.completion, str) for r in results):
         raise AssertionError("run_batch returned malformed results")
@@ -281,7 +417,7 @@ def phase_slice(dev, card, cfg, model, proc):
             if not (0.0 <= o.score <= 1.0):
                 raise AssertionError(f"object score {o.score} out of [0, 1]")
     n_obj = sum(len(r.objects) for r in results)
-    log(f"[slice] completions[0][:80] {results[0].completion[:80]!r}; objects parsed {n_obj}")
+    log(f"[{tag}] completions[0][:80] {results[0].completion[:80]!r}; objects parsed {n_obj}")
 
     # timed phases through the same public functions, and finiteness checks
     batch = proc.build_batch(prompts, images, patch_bucket=PATCHES, prompt_bucket=PROMPT_LEN)
@@ -289,13 +425,13 @@ def phase_slice(dev, card, cfg, model, proc):
     deltas = torch.as_tensor(batch.rope_deltas, device=dev)
     with torch.inference_mode():
         def vision():
-            return P.run_vision(model.params, cfg, tb)
+            return P.run_vision(params, cfg, tb)
 
         def vision_prefill():
             art = vision()
-            emb = P.extended_embed(model.params, cfg, tb["input_ids"], art.proto, art.merged)
+            emb = P.extended_embed(params, cfg, tb["input_ids"], art.proto, art.merged)
             return language.prefill(
-                model.params["text"], tc, emb, tb["position_ids"], tb["attention_mask"].bool(),
+                params["text"], tc, emb, tb["position_ids"], tb["attention_mask"].bool(),
                 PROMPT_LEN + NEW_TOKENS,
             )
 
@@ -305,7 +441,7 @@ def phase_slice(dev, card, cfg, model, proc):
 
         def full():
             nonlocal gen
-            gen = model.generate(tb, NEW_TOKENS, deltas, eos_token_id=-1)
+            gen = P.generate(params, cfg, tb, NEW_TOKENS, deltas, eos_token_id=-1)
 
         t_gen = cuda_ms(full, iters=2, warmup=1, hide_host=False)
         art = gen.artifacts
@@ -317,7 +453,7 @@ def phase_slice(dev, card, cfg, model, proc):
         _finite("hidden", gen.hidden, (BATCH, NEW_TOKENS, d))
         if gen.tokens.shape != (BATCH, NEW_TOKENS) or int(gen.num_generated.min()) != NEW_TOKENS:
             raise AssertionError("generate did not emit every token")
-        # the decoder at 3B width on 4 forced objects: hidden rows of the first 8 steps
+        # the decoder at full width on 4 forced objects: hidden rows of the first 8 steps
         k = 8
         feats = torch.zeros((cfg.max_objects, cfg.max_vrt_per_object, d), dtype=gen.hidden.dtype, device=dev)
         feats[:BATCH, :k] = gen.hidden[:, :k]
@@ -327,7 +463,7 @@ def phase_slice(dev, card, cfg, model, proc):
         sample_o = torch.zeros((cfg.max_objects,), dtype=torch.int64, device=dev)
         sample_o[:BATCH] = torch.arange(BATCH, device=dev)
         t0 = time.perf_counter()
-        dec = model.vl_decode(feats, counts_o, valid_o, sample_o, art)
+        dec = P.vl_decode(params, cfg, feats, counts_o, valid_o, sample_o, art)
         torch.cuda.synchronize()
         t_dec = time.perf_counter() - t0
         side = int(cfg.max_image_patches**0.5) + 1
@@ -338,10 +474,11 @@ def phase_slice(dev, card, cfg, model, proc):
             raise AssertionError("boxes outside [0, 1]")
     prefill_ms = t_vp - t_vis
     decode_ms = t_gen - t_vp
-    log(f"[slice] vision {t_vis:.2f} ms, prefill {prefill_ms:.2f} ms (vision+prefill {t_vp:.2f} ms), "
+    log(f"[{tag}] vision {t_vis:.2f} ms, prefill {prefill_ms:.2f} ms (vision+prefill {t_vp:.2f} ms), "
         f"generate {t_gen:.2f} ms, decode {decode_ms:.2f} ms = generate - (vision+prefill) for "
-        f"{NEW_TOKENS} tokens x {BATCH} rows -> {BATCH * NEW_TOKENS / (decode_ms / 1e3):.1f} tok/s; "
-        f"vl_decode {BATCH} objects (bucket {cfg.max_objects}) {t_dec * 1e3:.2f} ms; batch {BATCH}, prompt {PROMPT_LEN}, bf16 KV ({card})")
+        f"{NEW_TOKENS} tokens x {BATCH} rows -> {BATCH * NEW_TOKENS / (decode_ms / 1e3):.1f} tok/s, "
+        f"{decode_ms / (NEW_TOKENS - 1):.3f} ms per decode step; vl_decode {BATCH} objects (bucket {cfg.max_objects}) "
+        f"{t_dec * 1e3:.2f} ms; batch {BATCH}, prompt {PROMPT_LEN}, bf16 KV ({card})")
     return counts
 
 
@@ -349,18 +486,21 @@ def phase_tiny_reference(dev):
     """Tiny model on the card (bf16, kernels) vs the plain float32 path on the
     CPU, same weights: the vision tower and bf16-KV prefill, then the int8
     serve path (int8 prefill into a 2-slot pool, one 32-wide suffix pass
-    through H5 + H6, one decode step through H4 + H6)."""
+    through H5 + H6, one decode step through H4 + H6); once with dense
+    weights and once with int8 packed weights, quantized by the port on each
+    device (every text-layer product through H7 on the card)."""
     import numpy as np
 
-    from padt_tpu.config import padt_tiny
-    from padt_tpu.preprocess.vision_process import ProcessedImage
-    from padt_tpu.utils.mock_tokenizer import make_tiny_tokenizer
-    from padt_tpu.vrt.processor import VisionTextProcessor
+    from padt_tpu_torch import padt_tiny
     from padt_tpu_torch.models import language
     from padt_tpu_torch.models import padt as P
     from padt_tpu_torch.ops import cuda_attention as C
     from padt_tpu_torch.ops import cuda_kv as K
+    from padt_tpu_torch.ops import cuda_quant as Q
+    from padt_tpu_torch.preprocess.vision_process import ProcessedImage
     from padt_tpu_torch.serve import engine as S
+    from padt_tpu_torch.utils.mock_tokenizer import make_tiny_tokenizer
+    from padt_tpu_torch.vrt.processor import VisionTextProcessor
 
     cfg = padt_tiny()
     p32 = P.init_padt_params(cfg, torch.Generator().manual_seed(1), "cpu", torch.float32)
@@ -393,30 +533,34 @@ def phase_tiny_reference(dev):
             h_step = S._decode_step_slots(params["text"], cfg.text, P.extended_embed(params, cfg, T(step_ids), st.proto), st)
         return art.merged.float().cpu(), hid.float().cpu(), valid.cpu(), h_sfx, h_step.float().cpu()
 
-    n0, n0_kv = sum(C.launch_counts.values()), sum(K.launch_counts.values())
-    m_ref, h_ref, valid, s_ref, d_ref = run(p32, "cpu")
-    m_dev, h_dev, _, s_dev, d_dev = run(p16, dev)
-    if sum(C.launch_counts.values()) == n0 or sum(K.launch_counts.values()) == n0_kv:
-        raise AssertionError("tiny reference run launched no kernel on the card")
-    errs = []
-    for name, a, r, rows in (
-        ("merged", m_dev, m_ref, [slice(0, grids[i][1] * grids[i][2] // 4) for i in range(2)]),
-        ("prefill hidden", h_dev, h_ref, "valid"),
-        ("int8 suffix-pass hidden", s_dev, s_ref, None),
-        ("int8 decode-step hidden", d_dev, d_ref, None),
-    ):
-        if rows is None:
-            diff, mag = (a - r).abs().max().item(), r.abs().max().item()
-        elif rows == "valid":
-            diff, mag = (a - r)[valid].abs().max().item(), r[valid].abs().max().item()
-        else:
-            diff = max((a[i, sl] - r[i, sl]).abs().max().item() for i, sl in enumerate(rows))
-            mag = max(r[i, sl].abs().max().item() for i, sl in enumerate(rows))
-        rel = diff / mag
-        errs.append(rel)
-        log(f"[reference] tiny {name}: card bf16 vs CPU float32 max abs err {diff:.3e}, relative to max {rel:.3e} (tol {TINY_REL_TOL})")
-        if not rel <= TINY_REL_TOL:
-            raise AssertionError(f"tiny {name} disagrees with the CPU reference: {rel}")
+    quantized = lambda p: P.pack_inference_params(P.quantize_params(p))
+    for weights, ref_params, dev_params in (("bf16", p32, p16), ("int8", quantized(p32), quantized(p16))):
+        if weights == "int8" and dev_params["text"]["layers"]["qkv_w_q"].device != dev:
+            raise AssertionError("the int8 weights were not quantized on the card")
+        n0 = (sum(C.launch_counts.values()), sum(K.launch_counts.values()), Q.launch_counts["int8_matmul"])
+        m_ref, h_ref, valid, s_ref, d_ref = run(ref_params, "cpu")
+        m_dev, h_dev, _, s_dev, d_dev = run(dev_params, dev)
+        n1 = (sum(C.launch_counts.values()), sum(K.launch_counts.values()), Q.launch_counts["int8_matmul"])
+        if n1[0] == n0[0] or n1[1] == n0[1] or (weights == "int8" and n1[2] == n0[2]):
+            raise AssertionError(f"tiny reference run ({weights} weights) launched no kernel of a kind on the card")
+        for name, a, r, rows in (
+            ("merged", m_dev, m_ref, [slice(0, grids[i][1] * grids[i][2] // 4) for i in range(2)]),
+            ("prefill hidden", h_dev, h_ref, "valid"),
+            ("int8 suffix-pass hidden", s_dev, s_ref, None),
+            ("int8 decode-step hidden", d_dev, d_ref, None),
+        ):
+            if rows is None:
+                diff, mag = (a - r).abs().max().item(), r.abs().max().item()
+            elif rows == "valid":
+                diff, mag = (a - r)[valid].abs().max().item(), r[valid].abs().max().item()
+            else:
+                diff = max((a[i, sl] - r[i, sl]).abs().max().item() for i, sl in enumerate(rows))
+                mag = max(r[i, sl].abs().max().item() for i, sl in enumerate(rows))
+            rel = diff / mag
+            log(f"[reference] tiny {name}, {weights} weights: card bf16 vs CPU float32 max abs err {diff:.3e}, "
+                f"relative to max {rel:.3e} (tol {TINY_REL_TOL})")
+            if not rel <= TINY_REL_TOL:
+                raise AssertionError(f"tiny {name} ({weights} weights) disagrees with the CPU reference: {rel}")
 
 
 def _check_completions(name, comps, n, budgets, d):
@@ -440,33 +584,39 @@ def _check_results(name, results, n):
                 raise AssertionError(f"{name}: object score {o.score} out of [0, 1]")
 
 
+def _serve_prompts():
+    return [PROMPTS[i % len(PROMPTS)].replace('"the', f'"the {w}') for i, w in enumerate(
+        ["big", "small", "old", "new", "left", "right", "top", "blue", "green", "dark", "light", "far", "near", "tall", "short", "round"])]
+
+
+def _report_serve(tag, card, what, wall, prefill_s, decode_s, tokens, steps, n_req):
+    util = tokens / (steps * SERVE_SLOTS) if steps else 0.0
+    log(f"[{tag}] {what}: {n_req} requests, {SERVE_SLOTS} slots, bucket {SERVE_BUCKET}: {wall:.3f} s wall, "
+        f"device prefill {prefill_s:.3f} s, device decode {decode_s:.3f} s (CUDA events), {tokens} tokens in "
+        f"{steps} steps -> {tokens / decode_s:.1f} decode tok/s, {decode_s / max(steps, 1) * 1e3:.3f} ms per step, "
+        f"slot utilization {util:.3f} ({card})")
+
+
 def phase_serve(dev, card, cfg, model, proc):
     """PaDT-3B through the continuous-batching serve engine (int8 KV, packed
     weights): run_stream, ServeEngine.run with mixed budgets, share_prefix
     run_stream and a speculative=4 engine. Returns the launch counts of the
     whole phase and the forward counts that set their floors."""
     from padt_tpu_torch.eval.harness import InferenceEngine
-    from padt_tpu_torch.ops import cuda_attention as C
-    from padt_tpu_torch.ops import cuda_kv as K
     from padt_tpu_torch.serve import ServeEngine
 
     d = cfg.text.hidden_size
-    prompts = [PROMPTS[i % len(PROMPTS)].replace('"the', f'"the {w}') for i, w in enumerate(
-        ["big", "small", "old", "new", "left", "right", "top", "blue", "green", "dark", "light", "far", "near", "tall", "short", "round"])]
+    prompts = _serve_prompts()
     images = [_u8_image(100 + i) for i in range(SERVE_REQUESTS)]
     engine = InferenceEngine(model.params, cfg, proc, max_new_tokens=NEW_TOKENS)
     kw = dict(n_slots=SERVE_SLOTS, max_new_tokens=NEW_TOKENS, prompt_len=PROMPT_LEN, prefill_bucket=SERVE_BUCKET,
               patch_bucket=PATCHES, collect_hidden=True)
     forwards = {"decode": 0, "verify": 0, "suffix": 0}
+    report = lambda *a: _report_serve("serve", card, *a)
 
-    def report(what, wall, prefill_s, decode_s, tokens, steps, n_req):
-        util = tokens / (steps * SERVE_SLOTS) if steps else 0.0
-        log(f"[serve] {what}: {n_req} requests, {SERVE_SLOTS} slots, bucket {SERVE_BUCKET}: {wall:.3f} s wall, "
-            f"device prefill {prefill_s:.3f} s, device decode {decode_s:.3f} s (CUDA events), {tokens} tokens in "
-            f"{steps} steps -> {tokens / decode_s:.1f} decode tok/s, slot utilization {util:.3f} ({card})")
-
-    C.reset_launch_counts()
-    K.reset_launch_counts()
+    counters = _counters()
+    for c in counters:
+        c.reset_launch_counts()
     torch.cuda.synchronize()
     # 1. the user entry point: run_stream of 16 REC requests (prompt bucket 640)
     t0 = time.perf_counter()
@@ -529,35 +679,29 @@ def phase_serve(dev, card, cfg, model, proc):
     log(f"[serve] speculative vs plain greedy: {same} of {n_spec} completions token-identical "
         "(bf16 verify and decode round differently, so a near-tie may flip)")
 
-    counts = {**C.launch_counts, **K.launch_counts}
+    counts = {k: v for c in counters for k, v in c.launch_counts.items()}
     log(f"[serve] launches {counts}; forwards {forwards}")
     return counts, forwards
 
 
-def check_serve_launches(counts, forwards):
+def check_serve_launches(cfg, counts, forwards, what="the serve phase"):
     """Every int8 kernel ran on the serve path: H4 in every layer of every
     decode step, H5 in every layer of every suffix / verify pass, H6 once
     after each of them."""
-    from padt_tpu.config import padt_3b
-
-    nl = padt_3b().text.num_hidden_layers
+    nl = cfg.text.num_hidden_layers
     passes = forwards["verify"] + forwards["suffix"]
-    need = {
-        "int8_decode_attn": nl * forwards["decode"],
-        "int8_verify_attn": nl * passes,
-        "store_kv_rows": forwards["decode"] + passes,
-    }
+    need = {"int8_decode_attn": nl * forwards["decode"], "store_kv_rows": forwards["decode"] + passes}
+    if passes:
+        need["int8_verify_attn"] = nl * passes
     for k, n in need.items():
         if not (n > 0 and counts[k] >= n):
-            raise AssertionError(f"{k} launched {counts[k]} times in the serve phase, expected >= {n} (> 0)")
+            raise AssertionError(f"{k} launched {counts[k]} times in {what}, expected >= {n} (> 0)")
 
 
-def check_launches(counts):
+def check_launches(cfg, counts, what="run_batch"):
     """Every kernel ran on the main path: once per vision layer of its kind
     and once per text layer in prefill, at least."""
-    from padt_tpu.config import padt_3b
-
-    vc, tc = padt_3b().vision, padt_3b().text
+    vc, tc = cfg.vision, cfg.text
     n_full = len(vc.fullatt_block_indexes)
     need = {
         "rope_qk": vc.depth + tc.num_hidden_layers,
@@ -566,7 +710,104 @@ def check_launches(counts):
     }
     for k, n in need.items():
         if counts[k] < n:
-            raise AssertionError(f"{k} launched {counts[k]} times in run_batch, expected >= {n}")
+            raise AssertionError(f"{k} launched {counts[k]} times in {what}, expected >= {n}")
+
+
+def check_int8_matmul_launches(cfg, n, forwards, what):
+    """H7 ran for the four packed products of every text layer of every
+    forward (prefill layer passes, decode steps, suffix passes)."""
+    need = 4 * cfg.text.num_hidden_layers * forwards
+    if not (need > 0 and n >= need):
+        raise AssertionError(f"int8_matmul launched {n} times in {what}, expected >= {need} (> 0)")
+
+
+def _h7_cases(dev, layers, tag):
+    """H7 vs its twin at the 7B products' shapes, M = 8 (a decode step of 8
+    slots) and M = 2560 (a prefill bucket of 4 x 640), walking the layers'
+    own int8 weights from call to call so that each call streams its weight
+    from HBM (the walk covers at least three times the 50 MB L2); the
+    yardstick is torch._weight_int8pack_mm on the same walk."""
+    from padt_tpu_torch.ops import cuda_quant as Q
+    from padt_tpu_torch.ops import quant
+
+    def walk(fn, x, argsets):
+        """fn(x, *argsets[i]) over i = 0, 1, ...: the first call reads layer 0."""
+        nxt = itertools.cycle(argsets).__next__
+        return lambda: fn(x, *nxt())
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    cases = []
+    for name in ("qkv_w", "o_w", "gateup_w", "down_w"):
+        wq, s = layers[name + "_q"], layers[name + "_s"]  # (L, K, N) int8, (L, 1, N) fp32
+        nl, k, n = wq.shape
+        nb = min(nl, max(2, -(-int(L2_WALK_BYTES) // (k * n))))
+        ours = [(wq[i], s[i]) for i in range(nb)]
+        lib = [(wq[i].t().contiguous(), s[i].reshape(-1).to(torch.bfloat16)) for i in range(nb)]  # (N, K) int8, (N,) bf16
+        for m in (8, BATCH * PROMPT_LEN):
+            x = (torch.randn((m, k), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+            cases.append(dict(
+                name="int8_matmul", path="7b", source="int8_matmul.cu", replaces="padt_tpu/ops/quant.py:70", tol=TOL, relative=True,
+                shape=f"{tag}{name}_q M={m} x K={k} x N={n} ({nb} layers' weights in turn)",
+                kern=walk(Q.int8_matmul, x, ours), plain=walk(quant.int8_matmul_plain, x, ours),
+                library=walk(torch._weight_int8pack_mm, x, lib),
+                bound=(m * k * 2 + k * n + n * 4 + m * n * 2, 2 * m * n * k, BF16_TENSOR_FLOPS),
+            ))
+    return cases
+
+
+def phase_7b(dev, card):
+    """PaDT-7B with int8 packed text-layer weights at full depth and width:
+    H7's kernel lines on the model's own weights, then run_batch (bf16 KV)
+    and run_stream (int8 KV), each with the launch counters reset just
+    before and read just after. Returns (H7 entries, {kernel: launches})."""
+    from padt_tpu_torch import padt_7b
+    from padt_tpu_torch.eval.harness import InferenceEngine
+    from padt_tpu_torch.models import padt as P
+
+    cfg = padt_7b()
+    t0 = time.perf_counter()
+    params = P.init_padt_params_quantized(cfg, torch.Generator(device=dev).manual_seed(0), dev, torch.bfloat16, packed=True)
+    torch.cuda.synchronize()
+    leaves = P.PaDTModel(cfg, params).state_dict().values()
+    layer_bytes = sum(t.numel() * t.element_size() for t in params["text"]["layers"].values())
+    log(f"[7b] padt_7b random weights, int8 packed text layers: {sum(t.numel() for t in leaves) / 1e9:.3f} B params, "
+        f"{sum(t.numel() * t.element_size() for t in leaves) / 1e9:.3f} GB ({layer_bytes / 1e9:.3f} GB text layers) "
+        f"in {time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated ({card})")
+    entries = measure(_h7_cases(dev, params["text"]["layers"], "7B "), card)
+
+    proc = _processor(cfg)
+    counters = _counters()
+    counts_b = phase_run_batch("7b", dev, card, cfg, params, proc)
+    check_launches(cfg, counts_b, "the 7B run_batch")
+    # one prefill pass and NEW_TOKENS - 1 decode steps, unless every row hit EOS early
+    check_int8_matmul_launches(cfg, counts_b["int8_matmul"], NEW_TOKENS, "the 7B run_batch")
+
+    engine = InferenceEngine(params, cfg, proc, max_new_tokens=NEW_TOKENS)
+    prompts, images = _serve_prompts(), [_u8_image(300 + i) for i in range(SERVE_REQUESTS)]
+    for c in counters:
+        c.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = engine.run_stream(prompts, images, n_slots=SERVE_SLOTS, prefill_bucket=SERVE_BUCKET, prompt_bucket=PROMPT_LEN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts_s = {k: v for c in counters for k, v in c.launch_counts.items()}
+    _check_results("7B run_stream", results, SERVE_REQUESTS)
+    sp = engine.pop_stream_stats()
+    _report_serve("7b", card, "run_stream, int8 weights", wall, sp["engine_prefill_s"], sp["engine_decode_s"],
+                  sp["generated_tokens"], sp["decode_steps"], SERVE_REQUESTS)
+    log(f"[7b] run_stream launches {counts_s}; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated ({card})")
+    if sp["generated_tokens"] < SERVE_REQUESTS:
+        raise AssertionError(f"7B run_stream generated {sp['generated_tokens']} tokens for {SERVE_REQUESTS} requests")
+    if "qkv_w_q" not in engine.params["text"]["layers"]:
+        raise AssertionError("the 7B serve engine did not run on int8 packed weights")
+    check_serve_launches(cfg, counts_s, {"decode": sp["decode_steps"], "verify": 0, "suffix": sp["suffix_passes"]}, "the 7B run_stream")
+    # each admission prefills at most SERVE_BUCKET requests
+    n_prefill = -(-SERVE_REQUESTS // SERVE_BUCKET)
+    check_int8_matmul_launches(cfg, counts_s["int8_matmul"], n_prefill + sp["decode_steps"] + sp["suffix_passes"], "the 7B run_stream")
+    launches = {k: counts_b.get(k, 0) + counts_s.get(k, 0) for k in set(counts_b) | set(counts_s)}
+    return entries, launches
 
 
 def main() -> int:
@@ -580,12 +821,20 @@ def main() -> int:
     entries = phase_kernels(dev, card)
     phase_tiny_reference(dev)
     cfg, model, proc = load_3b(dev)
-    counts = phase_slice(dev, card, cfg, model, proc)
-    check_launches(counts)
+    counts = phase_run_batch("slice", dev, card, cfg, model.params, proc)
+    check_launches(cfg, counts)
     serve_counts, forwards = phase_serve(dev, card, cfg, model, proc)
-    check_serve_launches(serve_counts, forwards)
-    for e in entries:  # each kernel's launches on its own path: run_batch for H1-H3, serving for H4-H6
-        e["launches"] = counts[e["name"]] if e["name"] in counts else serve_counts[e["name"]]
+    check_serve_launches(cfg, serve_counts, forwards)
+    del model, proc
+    gc.collect()
+    torch.cuda.empty_cache()
+    h7_entries, counts_7b = phase_7b(dev, card)
+    entries += h7_entries
+    # each kernel's launches on its own path: the 3B run_batch for H1-H3, 3B
+    # serving for H4-H6, the 7B runs for the 7B shapes and H7
+    paths = {"3b_batch": counts, "3b_serve": serve_counts, "7b": counts_7b}
+    for e in entries:
+        e["launches"] = paths[e.pop("path")][e["name"]]
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -1,12 +1,14 @@
 """PaDT on PyTorch + CUDA for one NVIDIA H100: the port of `padt_tpu`.
 
 `padt_tpu` (JAX on TPU) stays the reference; this package mirrors its layout
-(`ops/`, `models/`, `eval/`, `convert/`) and function names, reuses its
-framework-neutral host modules by import (config, VRT processor/parser,
-preprocessing, vision geometry, M-RoPE index, mock tokenizer, RLE), and
-replaces its Pallas kernels with hand-written Hopper kernels under `csrc/`.
+(`ops/`, `models/`, `eval/`, `serve/`, `convert/`) and function names, keeps
+its own copies of the reference's framework-neutral host modules (`config`,
+`vrt/` processor and parser, `preprocess/vision_process`,
+`models/vision_geom`, `models/mrope_index`, `utils/mock_tokenizer`,
+`eval/rle`), and replaces its Pallas kernels with hand-written Hopper kernels
+under `csrc/`.
 
-Importing this package never imports jax.
+Importing this package imports neither jax nor anything of `padt_tpu`.
 """
 
 import torch
@@ -18,6 +20,6 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from padt_tpu.config import PaDTConfig, padt_3b, padt_tiny  # noqa: E402
+from .config import PaDTConfig, padt_3b, padt_7b, padt_tiny  # noqa: E402
 
-__all__ = ["PaDTConfig", "padt_3b", "padt_tiny"]
+__all__ = ["PaDTConfig", "padt_3b", "padt_7b", "padt_tiny"]

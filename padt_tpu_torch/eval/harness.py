@@ -30,13 +30,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from padt_tpu.config import PaDTConfig
-from padt_tpu.eval import rle as rle_codec
-from padt_tpu.preprocess.vision_process import ProcessedImage, process_image
-from padt_tpu.vrt.parser import pack_objects, parse_vrt_completions
-from padt_tpu.vrt.processor import VisionTextProcessor
-
+from ..config import PaDTConfig
 from ..models import padt as padt_model
+from ..preprocess.vision_process import ProcessedImage, ensure_min_28, process_image, resize_max_side
+from ..vrt.parser import pack_objects, parse_vrt_completions
+from ..vrt.processor import VisionTextProcessor
+from . import rle as rle_codec
 
 
 @dataclass
@@ -425,8 +424,6 @@ def infer_dataset(
     from concurrent.futures import ThreadPoolExecutor
 
     import PIL.Image
-
-    from padt_tpu.preprocess.vision_process import ensure_min_28, resize_max_side
 
     rank = 0
     res_path = os.path.join(output_dir, f"{datasetname}_{rank}_pred_results_{suffix}.json")

@@ -15,8 +15,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from padt_tpu.config import DecoderConfig
-
+from ..config import DecoderConfig
 from ..ops.attention import masked_cross_attention
 from ..ops.cuda_attention import rope_qk
 from ..ops.norms import rms_norm

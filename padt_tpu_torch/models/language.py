@@ -1,12 +1,13 @@
 """Qwen2.5 text decoder with M-RoPE and a static-shape KV cache (port of
 `padt_tpu/models/language.py`): unpacked or packed (`pack_inference_params`)
-bf16 weights, a bf16 or an int8 KV cache.
+weights in bf16 or int8 (`quantize_params`), a bf16 or an int8 KV cache.
 
 `prefill` runs the causal forward over the prompt and seeds the cache;
 `decode_step` runs one token over it. Both return post-final-norm hidden
 states. q/k rope runs through the H1 kernel and prefill attention through
 H2 on the card. bf16 decode attention is plain PyTorch, as JAX leaves it to
-XLA; int8 decode attention is H4 and its row store H6.
+XLA; int8 decode attention is H4 and its row store H6. Every product with
+an int8 weight (`*_w_q` / `*_w_s`) goes through H7 (`ops.quant.linear`).
 """
 
 from __future__ import annotations
@@ -17,12 +18,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from padt_tpu.config import TextConfig
-
+from ..config import TextConfig
 from ..ops.attention import causal_attention, decode_attention
 from ..ops.cuda_attention import rope_qk
 from ..ops.kv_cache import decode_attention_int8, empty_scale, quantize_kv, store_kv_rows_all_layers
 from ..ops.norms import rms_norm
+from ..ops.quant import linear as qlinear
 from ..ops.rope import mrope_cos_sin
 from .params import normal, ones, zeros
 
@@ -109,30 +110,35 @@ def _layer(params, li: int):
     return {k: v[li] for k, v in params["layers"].items()}
 
 
+def _packed(lp) -> bool:
+    """True for the fused serving layout (`qkv_w` or `qkv_w_q`)."""
+    return "qkv_w" in lp or "qkv_w_q" in lp
+
+
 def _qkv_rot(xn, lp, cfg: TextConfig, cos, sin):
     """Projections + rope -> q (B, L, H, hd), k and v (B, L, Hkv, hd). With
     packed weights (`qkv_w`, one fused product), H1 reads q and k as column
     views of the fused output and v stays a view of it."""
     b, l, _ = xn.shape
     h, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    if "qkv_w" in lp:
-        qkv = xn @ lp["qkv_w"] + lp["qkv_b"]
+    if _packed(lp):
+        qkv = qlinear(lp, "qkv_w", xn) + lp["qkv_b"]
         qp, kp = qkv[..., : h * hd], qkv[..., h * hd : (h + hkv) * hd]
         v = qkv[..., (h + hkv) * hd :].unflatten(-1, (hkv, hd))
     else:
-        qp = xn @ lp["q_w"] + lp["q_b"]
-        kp = xn @ lp["k_w"] + lp["k_b"]
-        v = (xn @ lp["v_w"] + lp["v_b"]).reshape(b, l, hkv, hd)
+        qp = qlinear(lp, "q_w", xn) + lp["q_b"]
+        kp = qlinear(lp, "k_w", xn) + lp["k_b"]
+        v = (qlinear(lp, "v_w", xn) + lp["v_b"]).reshape(b, l, hkv, hd)
     q, k = rope_qk(qp, kp, cos, sin, h, hkv)
     return q.reshape(b, l, h, hd), k.reshape(b, l, hkv, hd), v
 
 
 def _mlp(x, lp):
-    if "gateup_w" in lp:
-        gu = x @ lp["gateup_w"]
+    if "gateup_w" in lp or "gateup_w_q" in lp:
+        gu = qlinear(lp, "gateup_w", x)
         ff = gu.shape[-1] // 2
-        return (F.silu(gu[..., :ff]) * gu[..., ff:]) @ lp["down_w"]
-    return (F.silu(x @ lp["gate_w"]) * (x @ lp["up_w"])) @ lp["down_w"]
+        return qlinear(lp, "down_w", F.silu(gu[..., :ff]) * gu[..., ff:])
+    return qlinear(lp, "down_w", F.silu(qlinear(lp, "gate_w", x)) * qlinear(lp, "up_w", x))
 
 
 def prefill(
@@ -172,7 +178,7 @@ def prefill(
             xn = rms_norm(xc, lp["input_ln_w"], cfg.rms_norm_eps)
             q, k, v = _qkv_rot(xn, lp, cfg, cos[s0:s1], sin[s0:s1])
             attn = causal_attention(q, k, v, valid[s0:s1])
-            xc = xc + attn.reshape(s1 - s0, l, -1) @ lp["o_w"]
+            xc = xc + qlinear(lp, "o_w", attn.reshape(s1 - s0, l, -1))
             xc = xc + _mlp(rms_norm(xc, lp["post_ln_w"], cfg.rms_norm_eps), lp)
             if int8:
                 cache.k[li, s0:s1, :, :l], cache.k_scale[li, s0:s1, :, :l] = quantize_kv(k.transpose(1, 2))
@@ -212,7 +218,7 @@ def decode_step(params, cfg: TextConfig, inputs_embeds: torch.Tensor, position_i
         cache.k[li].index_copy_(1, slot, k)
         cache.v[li].index_copy_(1, slot, v)
         attn = decode_attention(q, cache.k[li], cache.v[li], cache.valid)
-        x = x + attn.reshape(b, 1, -1) @ lp["o_w"]
+        x = x + qlinear(lp, "o_w", attn.reshape(b, 1, -1))
         x = x + _mlp(rms_norm(x, lp["post_ln_w"], cfg.rms_norm_eps), lp)
     cache.length = pos + 1
     return rms_norm(x, params["final_ln_w"], cfg.rms_norm_eps), cache
@@ -231,7 +237,7 @@ def int8_layers(params, cfg: TextConfig, x, cos, sin, attend):
         lp = _layer(params, li)
         q, k, v = _qkv_rot(rms_norm(x, lp["input_ln_w"], cfg.rms_norm_eps), lp, cfg, cos, sin)
         fresh = (*quantize_kv(k.transpose(1, 2)), *quantize_kv(v.transpose(1, 2)))
-        x = x + attend(q, li, fresh).reshape(b, n, -1) @ lp["o_w"]
+        x = x + qlinear(lp, "o_w", attend(q, li, fresh).reshape(b, n, -1))
         x = x + _mlp(rms_norm(x, lp["post_ln_w"], cfg.rms_norm_eps), lp)
         rows.append(fresh)
     return rms_norm(x, params["final_ln_w"], cfg.rms_norm_eps), tuple(torch.stack(t) for t in zip(*rows))

@@ -10,18 +10,20 @@ step whether every row has finished.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from padt_tpu.config import PaDTConfig
-
+from ..config import PaDTConfig
 from ..ops.norms import layer_norm
+from ..ops.quant import quantize_weight
+from ..preprocess.vision_process import OPENAI_CLIP_MEAN, OPENAI_CLIP_STD
 from . import language
 from .decoder import decoder_forward, init_decoder_params
-from .params import normal, zeros
+from .params import normal, ones, zeros
 from .vision import init_vision_params, vision_forward
 
 NEG_INF = -1e30
@@ -50,20 +52,79 @@ def init_padt_params(cfg: PaDTConfig, generator: torch.Generator, device, dtype=
     return params
 
 
+def init_padt_params_quantized(
+    cfg: PaDTConfig, generator: torch.Generator, device, dtype=torch.bfloat16, packed: bool = False
+) -> Dict[str, Any]:
+    """Random init with the text-layer weights made directly in the
+    `quantize_params` layout (`padt_tpu.models.padt.init_padt_params_quantized`):
+    int8 values uniform in [-127, 127], one layer at a time, and fp32 scales
+    0.02 / 73 (the uniform int8 std is ~73, so the dequantized weights match
+    the dense init's 0.02 std); the other leaves as `init_padt_params` makes
+    them in `dtype`. packed=True builds the fused `qkv_w_q` / `gateup_w_q`
+    serving layout directly."""
+    tc = cfg.text
+    params = init_padt_params(cfg.replace(text=dataclasses.replace(tc, num_hidden_layers=0)), generator, device, dtype)
+    nl, d, ff = tc.num_hidden_layers, tc.hidden_size, tc.intermediate_size
+    qd = tc.num_attention_heads * tc.head_dim
+    kvd = tc.num_key_value_heads * tc.head_dim
+    layers = {"input_ln_w": ones((nl, d), device, dtype), "post_ln_w": ones((nl, d), device, dtype)}
+    if packed:
+        shapes = {"qkv_w": (d, qd + 2 * kvd), "o_w": (qd, d), "gateup_w": (d, 2 * ff), "down_w": (ff, d)}
+        layers["qkv_b"] = zeros((nl, qd + 2 * kvd), device, dtype)
+    else:
+        shapes = {"q_w": (d, qd), "k_w": (d, kvd), "v_w": (d, kvd), "o_w": (qd, d),
+                  "gate_w": (d, ff), "up_w": (d, ff), "down_w": (ff, d)}
+        layers.update(q_b=zeros((nl, qd), device, dtype), k_b=zeros((nl, kvd), device, dtype),
+                      v_b=zeros((nl, kvd), device, dtype))
+    for name, shp in shapes.items():
+        q = torch.empty((nl, *shp), dtype=torch.int8, device=device)
+        for li in range(nl):
+            q[li] = torch.randint(-127, 128, shp, generator=generator, device=device, dtype=torch.int8)
+        layers[name + "_q"] = q
+        layers[name + "_s"] = torch.full((nl, 1, shp[1]), 0.02 / 73.0, dtype=torch.float32, device=device)
+    params["text"]["layers"] = layers
+    return params
+
+
+_QUANT_LAYER_WEIGHTS = ("q_w", "k_w", "v_w", "o_w", "gate_w", "up_w", "down_w")
+
+
+def quantize_params(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Text-layer weights -> per-output-channel int8 `{name}_q` (L, in, out)
+    and fp32 scales `{name}_s` (L, 1, out); every other leaf is shared with
+    `params`. One layer at a time, so no all-layer fp32 copy is ever held."""
+    layers = dict(params["text"]["layers"])
+    for name in _QUANT_LAYER_WEIGHTS:
+        w = layers.pop(name)  # (L, in, out)
+        q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        s = torch.empty((w.shape[0], 1, w.shape[2]), dtype=torch.float32, device=w.device)
+        for li in range(w.shape[0]):
+            qs = quantize_weight(w[li])
+            q[li], s[li] = qs["q"], qs["s"]
+        layers[name + "_q"], layers[name + "_s"] = q, s
+    out = dict(params)
+    out["text"] = dict(params["text"], layers=layers)
+    return out
+
+
 def pack_inference_params(params: Dict[str, Any]) -> Dict[str, Any]:
     """Fuse the text layers' weight streams for serving: q|k|v -> `qkv_w`
-    (L, d, (H+2*Hkv)*hd) and `qkv_b`, gate|up -> `gateup_w` (L, d, 2*ff).
-    Exact: each output column depends only on its own weight column.
-    Idempotent; the other leaves are shared with `params`. The int8-weight
-    layout (`*_q` / `*_s`) comes with the int8 matmul kernel (K10)."""
+    (L, d, (H+2*Hkv)*hd) and `qkv_b`, gate|up -> `gateup_w` (L, d, 2*ff); on
+    the int8 layout the values and the per-column scales concatenate the
+    same way (`qkv_w_q` / `qkv_w_s`, `gateup_w_q` / `gateup_w_s`). Exact:
+    each output column depends only on its own weight column. Idempotent;
+    the other leaves are shared with `params`."""
     layers = dict(params["text"]["layers"])
-    if "qkv_w" in layers:
+    if "qkv_w" in layers or "qkv_w_q" in layers:
         return params
-    if "q_w_q" in layers:
-        raise NotImplementedError("int8 weights are not ported yet (K10, ROADMAP.md)")
     cat = lambda names: torch.cat([layers.pop(n) for n in names], dim=-1)
-    layers["qkv_w"] = cat(("q_w", "k_w", "v_w"))
-    layers["gateup_w"] = cat(("gate_w", "up_w"))
+    if "q_w_q" in layers:
+        for suffix in ("_q", "_s"):
+            layers["qkv_w" + suffix] = cat(("q_w" + suffix, "k_w" + suffix, "v_w" + suffix))
+            layers["gateup_w" + suffix] = cat(("gate_w" + suffix, "up_w" + suffix))
+    else:
+        layers["qkv_w"] = cat(("q_w", "k_w", "v_w"))
+        layers["gateup_w"] = cat(("gate_w", "up_w"))
     layers["qkv_b"] = cat(("q_b", "k_b", "v_b"))
     out = dict(params)
     out["text"] = dict(params["text"], layers=layers)
@@ -201,8 +262,6 @@ _VISION_BATCH_KEYS = (
 def _pixel_u8_lut(dtype=torch.float32, device=None) -> torch.Tensor:
     """(3, 256) per-channel table lut[c, v] = (f32(v)/255 - mean[c]) / std[c],
     built with the numpy expression the host pipeline uses."""
-    from padt_tpu.preprocess.vision_process import OPENAI_CLIP_MEAN, OPENAI_CLIP_STD
-
     v = np.arange(256, dtype=np.float32) / np.float32(255.0)
     mean = np.asarray(OPENAI_CLIP_MEAN, np.float32)[:, None]
     std = np.asarray(OPENAI_CLIP_STD, np.float32)[:, None]

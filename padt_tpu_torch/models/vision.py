@@ -15,8 +15,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from padt_tpu.config import VisionConfig
-
+from ..config import VisionConfig
 from ..ops.attention import fused_vision_attention_qkv, window_attention_qkv
 from ..ops.norms import rms_norm
 from ..ops.rope import vision_rope_cos_sin

@@ -36,6 +36,7 @@ _SIGNATURES = {
     "padt_int8_decode_attn": [_P] * 11 + [_I] * 7 + [_F, _P],
     "padt_int8_verify_attn": [_P] * 11 + [_I] * 8 + [_F, _P],
     "padt_store_kv_rows": [_P] * 10 + [_I] * 6 + [_P],
+    "padt_int8_matmul": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

@@ -11,7 +11,9 @@ index assignment), and a decode chunk is a Python loop that reads
 
 On the card every decode step runs H4 (`int8_decode_attn`) in every layer
 and one H6 store; every suffix pass and speculative verify runs H5
-(`int8_verify_attn`) in every layer and one H6 store.
+(`int8_verify_attn`) in every layer and one H6 store. On int8 weights every
+text-layer product of every forward runs H7 (`int8_matmul`, through
+`language.int8_layers`).
 
 `ServeStats.prefill_s` / `decode_s` are device time between CUDA events,
 read at each chunk's flag readback (host clock on the CPU, where work is
@@ -31,8 +33,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from padt_tpu.config import PaDTConfig
-
+from ..config import PaDTConfig
 from ..models import language
 from ..models import padt as padt_model
 from ..ops.kv_cache import (

@@ -1,7 +1,9 @@
-"""PyTorch port: the parameter bridge, the port's own init tree, and the
-package's independence from JAX."""
+"""PyTorch port: the parameter bridge, the port's own init trees (dense and
+int8), the int8 parameter transforms against JAX's, and the package's
+independence from JAX and from the JAX package."""
 
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -13,7 +15,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from test_torch_common import tiny_params
+from test_torch_common import tiny_params, torch_cfg
 from padt_tpu.config import padt_tiny
 from padt_tpu.models import padt as JP
 from padt_tpu_torch.convert.from_jax import params_from_numpy, params_to_numpy
@@ -85,22 +87,120 @@ def test_padt_model_holds_the_tree():
 
 
 def test_import_leaves_jax_out():
+    """Every module of the port, and chip_smoke as a module (main not run),
+    imports neither jax nor anything of padt_tpu."""
     code = (
-        "import sys\n"
-        "import padt_tpu_torch.eval.harness, padt_tpu_torch.models.padt, padt_tpu_torch.convert.from_jax\n"
-        "import padt_tpu_torch.ops.cuda_attention, padt_tpu_torch.ops._build\n"
-        "import padt_tpu_torch.ops.cuda_kv, padt_tpu_torch.ops.kv_cache, padt_tpu_torch.serve\n"
-        "print('jax' in sys.modules)\n"
+        "import importlib, pkgutil, sys\n"
+        "import padt_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(padt_tpu_torch.__path__, 'padt_tpu_torch.')]\n"
+        "for name in names + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'padt_tpu' or m.startswith('padt_tpu.'))\n"
+        "print(len(names), bad)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, cwd=ROOT, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "False"
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 30 and bad == "[]", out.stdout
+
+
+def test_sources_import_nothing_of_padt_tpu():
+    """A source scan: no import statement of the port or of chip_smoke.py
+    names padt_tpu or a module of it."""
+    pat = re.compile(r"^\s*(from\s+padt_tpu(\.|\s)|import\s+padt_tpu(\.|\s|,|$))|import_module\(\s*[\"']padt_tpu[\"'.]", re.M)
+    paths = list((ROOT / "padt_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(paths) >= 30
+    for path in paths:
+        hits = pat.findall(path.read_text())
+        assert not hits, (path, hits)
 
 
 def test_package_uses_no_jax_and_no_library_attention():
-    banned = ("import jax", "from jax", "scaled_dot_product_attention", "torch.compile", "flash_attn", "xformers")
+    """Neither the package nor chip_smoke.py uses JAX or compiled or packaged
+    kernels; the package calls no library attention or int8 GEMM either
+    (chip_smoke.py times those beside the kernels as yardsticks)."""
+    banned = ("import jax", "from jax", "torch.compile", "flash_attn", "xformers")
+    library = ("scaled_dot_product_attention", "_weight_int8pack_mm", "_int_mm", "cublas")
     for path in list((ROOT / "padt_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]:
         text = path.read_text()
-        for word in banned:
+        for word in banned + (library if path.name != "chip_smoke.py" else ()):
             assert word not in text, (path, word)
+    for path in (ROOT / "padt_tpu_torch" / "csrc").glob("*.cu*"):
+        text = path.read_text().lower()
+        assert "cublas" not in text and "cutlass/gemm" not in text, path
+
+
+# ---------------------------------------------------------------------------
+# int8 text-layer weights
+# ---------------------------------------------------------------------------
+
+def _assert_same_tree(ours, theirs):
+    """The same keys, shapes and dtypes; int8 leaves equal or one quantum
+    apart at a rounding tie, fp32 scales within 1e-6 relative, every other
+    leaf equal."""
+    assert set(ours) == set(theirs)
+    for k, v in theirs.items():
+        assert ours[k].shape == v.shape and ours[k].dtype == v.dtype, k
+        if v.dtype == torch.int8:
+            d = (ours[k].int() - v.int()).abs()
+            assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 1e-3, k
+        elif k.endswith("_s"):
+            torch.testing.assert_close(ours[k], v, rtol=1e-6, atol=0, msg=k)
+        else:
+            assert torch.equal(ours[k], v), k
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_quantize_and_pack_match_jax_key_for_key(packed):
+    """quantize_params (then the int8 branch of pack_inference_params) on the
+    bridged tree == the bridged JAX result; packing twice changes nothing."""
+    cfg, jp, tp = tiny_params(5)
+    jq, tq = JP.quantize_params(jp), TP.quantize_params(tp)
+    if packed:
+        jq, tq = JP.pack_inference_params(jq), TP.pack_inference_params(tq)
+        assert TP.pack_inference_params(tq) is tq
+    ours = _flat(tq)
+    _assert_same_tree(ours, _flat(params_from_numpy(jax.tree.map(np.asarray, jq))))
+    names = ("qkv_w", "o_w", "gateup_w", "down_w") if packed else ("q_w", "k_w", "v_w", "o_w", "gate_w", "up_w", "down_w")
+    for n in names:
+        assert ours[f"text/layers/{n}_q"].dtype == torch.int8 and ours[f"text/layers/{n}_s"].dtype == torch.float32
+        assert f"text/layers/{n}" not in ours
+    assert "q_w" in tp["text"]["layers"]  # the input tree is left as it was
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_init_quantized_tree_matches_jax(packed):
+    """init_padt_params_quantized: JAX's keys, shapes and dtypes
+    (jax.eval_shape), int8 values filling [-127, 127], scales 0.02 / 73."""
+    cfg = padt_tiny()
+    jf = _flat(jax.eval_shape(lambda k: JP.init_padt_params_quantized(cfg, k, jnp.float32, packed=packed), jax.random.PRNGKey(0)))
+    tree = TP.init_padt_params_quantized(torch_cfg(cfg), torch.Generator().manual_seed(0), "cpu", torch.float32, packed=packed)
+    tf = _flat(tree)
+    assert set(jf) == set(tf)
+    for k, v in jf.items():
+        assert tuple(tf[k].shape) == v.shape, k
+        assert str(tf[k].dtype).split(".")[-1] == str(v.dtype), k
+    q = tf["text/layers/o_w_q"]
+    assert int(q.min()) == -127 and int(q.max()) == 127
+    assert torch.all(tf["text/layers/down_w_s"] == np.float32(0.02 / 73.0))
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_bridge_keeps_int8_leaves(packed):
+    """int8 values and fp32 scales cross the bridge unchanged, both ways."""
+    cfg, jp, _ = tiny_params(6)
+    jq = JP.quantize_params(jp)
+    if packed:
+        jq = JP.pack_inference_params(jq)
+    jf = _flat(jq)
+    tf = _flat(params_from_numpy(jax.tree.map(np.asarray, jq)))
+    back = _flat(params_to_numpy(params_from_numpy(jax.tree.map(np.asarray, jq))))
+    quant = [k for k in jf if k.endswith("_q") or k.endswith("_s")]
+    assert len(quant) == (8 if packed else 14)
+    for k in quant:
+        want = torch.int8 if k.endswith("_q") else torch.float32
+        assert tf[k].dtype == want, k
+        np.testing.assert_array_equal(tf[k].numpy(), np.asarray(jf[k]), err_msg=k)
+        assert back[k].dtype == np.asarray(jf[k]).dtype
+        np.testing.assert_array_equal(back[k], np.asarray(jf[k]), err_msg=k)

@@ -7,7 +7,7 @@ import numpy as np
 import jax.numpy as jnp
 import torch
 
-from test_torch_common import close, tiny_params
+from test_torch_common import close, tiny_params, torch_cfg
 from padt_tpu.models import padt as JP
 from padt_tpu.models.vision_geom import vision_geometry
 from padt_tpu.ops.rope import vision_rope_cos_sin
@@ -40,7 +40,7 @@ def test_vl_decode_matches_jax():
     jart = JP.VisionArtifacts(**{k_: jnp.asarray(v) for k_, v in art_np.items()})
     tart = TP.VisionArtifacts(**{k_: T(v) for k_, v in art_np.items()})
     jd = JP.vl_decode(jp, cfg, jnp.asarray(feats), jnp.asarray(counts), jnp.asarray(valid), jnp.asarray(sample), jart, canvas_hw=canvas)
-    td = TP.vl_decode(tp, cfg, T(feats), T(counts), T(valid), T(sample), tart, canvas_hw=canvas)
+    td = TP.vl_decode(tp, torch_cfg(cfg), T(feats), T(counts), T(valid), T(sample), tart, canvas_hw=canvas)
     close(td.pred_boxes, np.asarray(jd.pred_boxes), rows=valid)
     close(td.pred_score, np.asarray(jd.pred_score), rows=valid)
     close(td.pred_mask, np.asarray(jd.pred_mask), rows=valid)

@@ -4,12 +4,13 @@ within 1e-4 (relative to their magnitude: float32 on both sides, summed in
 another order), with an EOS that one row hits early and then every row."""
 
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
 import torch
 
-from test_torch_common import close, jax_batch, seeded_image, tiny_params, tiny_processor, torch_batch
+from test_torch_common import close, jax_batch, seeded_image, tiny_params, tiny_processor, torch_batch, torch_cfg
 from padt_tpu.models import padt as JP
 from padt_tpu_torch.convert.from_jax import params_from_numpy
 from padt_tpu_torch.models import padt as TP
@@ -39,7 +40,7 @@ def test_greedy_generate_is_token_exact():
     assert first[0][eos] != first[1][eos] and max(first[0][eos], first[1][eos]) < STEPS - 1
 
     jo = JP.generate(jp, cfg, jb, STEPS, jnp.asarray(deltas), eos_token_id=eos)
-    to = TP.generate(tp, cfg, tb, STEPS, torch.as_tensor(deltas), eos_token_id=eos)
+    to = TP.generate(tp, torch_cfg(cfg), tb, STEPS, torch.as_tensor(deltas), eos_token_id=eos)
     np.testing.assert_array_equal(to.tokens.numpy(), np.asarray(jo.tokens))
     np.testing.assert_array_equal(to.num_generated.numpy(), np.asarray(jo.num_generated))
     assert sorted(to.num_generated.tolist()) == sorted(first[r][eos] + 1 for r in range(2))
@@ -61,7 +62,35 @@ def test_int8_generate_is_token_exact():
     jb, tb = jax_batch(batch.data), torch_batch(batch.data)
     deltas = batch.rope_deltas
     jo = JP.generate(jp, cfg, jb, STEPS, jnp.asarray(deltas), eos_token_id=-1, kv_cache_dtype="int8")
-    to = TP.generate(tp, cfg, tb, STEPS, torch.as_tensor(deltas), eos_token_id=-1, kv_cache_dtype="int8")
+    to = TP.generate(tp, torch_cfg(cfg), tb, STEPS, torch.as_tensor(deltas), eos_token_id=-1, kv_cache_dtype="int8")
+    np.testing.assert_array_equal(to.tokens.numpy(), np.asarray(jo.tokens))
+    assert len(set(to.tokens.flatten().tolist())) > 3
+    np.testing.assert_array_equal(to.num_generated.numpy(), np.asarray(jo.num_generated))
+    close(to.hidden, np.asarray(jo.hidden), tol=1e-3)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_quantized_generate_is_token_exact(kv):
+    """int8 text-layer weights, each side quantized by its own
+    `quantize_params` (every text-layer product through H7's twin on the
+    port's side), unpacked with the bf16 KV cache and packed (the serve
+    layout) with the int8 one: tokens and counts equal to JAX's, hidden
+    states within 1e-3 (an int8 KV value may differ by one quantum at a
+    rounding boundary)."""
+    cfg, jp, _ = tiny_params(0)
+    jp["text"]["layers"] = jax.tree.map(lambda x: x * 5.0 if x.ndim == 3 else x, jp["text"]["layers"])
+    tp = TP.quantize_params(params_from_numpy(jax.tree.map(np.asarray, jp)))
+    jq = JP.quantize_params(jp)
+    if kv == "int8":
+        jq, tp = JP.pack_inference_params(jq), TP.pack_inference_params(tp)
+    assert ("qkv_w_q" in tp["text"]["layers"]) == (kv == "int8") and "o_w" not in tp["text"]["layers"]
+    proc = tiny_processor(cfg)
+    imgs = [seeded_image((1, 8, 12), 5, u8=False), seeded_image((1, 12, 16), 6, u8=False)]
+    batch = proc.build_batch(['find "x"', 'where is "the bird"'], imgs, patch_bucket=cfg.max_image_patches)
+    jb, tb = jax_batch(batch.data), torch_batch(batch.data)
+    deltas = batch.rope_deltas
+    jo = JP.generate(jq, cfg, jb, STEPS, jnp.asarray(deltas), eos_token_id=-1, kv_cache_dtype=kv)
+    to = TP.generate(tp, torch_cfg(cfg), tb, STEPS, torch.as_tensor(deltas), eos_token_id=-1, kv_cache_dtype=kv)
     np.testing.assert_array_equal(to.tokens.numpy(), np.asarray(jo.tokens))
     assert len(set(to.tokens.flatten().tolist())) > 3
     np.testing.assert_array_equal(to.num_generated.numpy(), np.asarray(jo.num_generated))

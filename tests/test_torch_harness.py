@@ -15,7 +15,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from test_torch_common import seeded_image, tiny_params, tiny_processor
+from test_torch_common import port_image, seeded_image, tiny_params, tiny_processor, torch_cfg
 from padt_tpu.eval import rle as rle_codec
 from padt_tpu.eval.harness import InferenceEngine as JaxEngine
 from padt_tpu.eval.harness import infer_dataset as JaxInferDataset
@@ -51,8 +51,9 @@ def test_run_batch_matches_jax_engine(monkeypatch):
     ups = []
     real = TH.upsample_logits
     monkeypatch.setattr(TH, "upsample_logits", lambda *a: ups.append(real(*a)) or ups[-1])
-    tres = TH.InferenceEngine(tp, cfg, tiny_processor(cfg), max_new_tokens=6, canvas_hw=(17, 17)).run_batch(
-        prompts, images, image_sizes=sizes
+    tcfg = torch_cfg(cfg)
+    tres = TH.InferenceEngine(tp, tcfg, tiny_processor(tcfg), max_new_tokens=6, canvas_hw=(17, 17)).run_batch(
+        prompts, [port_image(im) for im in images], image_sizes=sizes
     )
     assert sum(len(r.objects) for r in jres) > 0
     assert len(ups) == sum(len(r.objects) for r in tres)
@@ -80,7 +81,8 @@ def test_run_batch_on_packed_weights_matches_jax_engine():
     prompts = ['find "x"', 'where is "the cat"']
     kw = dict(max_new_tokens=6, canvas_hw=(17, 17), compute_mask=False)
     jres = JaxEngine(jp, cfg, tiny_processor(cfg), compact_pixels=False, **kw).run_batch(prompts, images)
-    tres = TH.InferenceEngine(tp, cfg, tiny_processor(cfg), **kw).run_batch(prompts, images)
+    tcfg = torch_cfg(cfg)
+    tres = TH.InferenceEngine(tp, tcfg, tiny_processor(tcfg), **kw).run_batch(prompts, [port_image(im) for im in images])
     assert sum(len(r.objects) for r in jres) > 0
     for jr, tr in zip(jres, tres):
         assert tr.completion == jr.completion
@@ -91,6 +93,7 @@ def test_raw_images_follow_the_engine_wire_format_and_leave_the_processor_alone(
     import PIL.Image
 
     cfg, _, tp = tiny_params(4)
+    cfg = torch_cfg(cfg)
     proc = tiny_processor(cfg)
     img = PIL.Image.fromarray(np.random.RandomState(0).randint(0, 255, (64, 96, 3), np.uint8))
     out = {}
@@ -130,7 +133,8 @@ def test_infer_dataset_matches_jax(tmp_path, stream, share):
     kw = dict(max_new_tokens=6, canvas_hw=(9, 9), compute_mask=False, compact_pixels=False)
     run = dict(batch_size=3, prompt_bucket=128, stream=stream, share_prefix=share, n_slots=2, prefill_bucket=1, chunk_steps=3)
     jfiles = JaxInferDataset(JaxEngine(jp, cfg, tiny_processor(cfg), **kw), rows, str(tmp_path / "jax"), **run)
-    tfiles = TH.infer_dataset(TH.InferenceEngine(tp, cfg, tiny_processor(cfg), **kw), rows, str(tmp_path / "port"), **run)
+    tcfg = torch_cfg(cfg)
+    tfiles = TH.infer_dataset(TH.InferenceEngine(tp, tcfg, tiny_processor(tcfg), **kw), rows, str(tmp_path / "port"), **run)
     for jf, tf in zip(jfiles, tfiles):
         assert os.path.basename(jf) == os.path.basename(tf)
         jl, tl = ([json.loads(x) for x in open(f)] for f in (jf, tf))

@@ -11,7 +11,7 @@ sum in another order."""
 import pytest
 import torch
 
-from padt_tpu.models.vision_geom import vision_geometry
+from padt_tpu_torch.models.vision_geom import vision_geometry
 from padt_tpu_torch.ops import cuda_attention as C
 
 pytestmark = pytest.mark.cuda
@@ -231,3 +231,64 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(dev):
     rows = [t[None].expand(1, *t.shape).contiguous() for t in (kn, ksn, vn, vsn)]
     with pytest.raises(ValueError, match="int32"):
         K.store_kv_rows(k8, ks, v8, vs, *rows, pos.long(), pos)
+
+
+# ---------------------------------------------------------------------------
+# H7 int8_matmul vs its twin in padt_tpu_torch.ops.quant
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "m,k,n",
+    [(1, 96, 64), (7, 96, 96), (65, 160, 96), (130, 128, 320), (8, 3584, 3584), (256, 3584, 4608), (300, 200, 48)],
+)
+def test_int8_matmul_matches_plain(dev, m, k, n):
+    """M, N and K tails (the tiny model's N of 64..320 and K of 96 / 160,
+    K = 200 not a multiple of the 64-wide K step), split-K shapes (M = 8 and
+    256 at 7B's widths) and one tile per CTA. Tolerance 2e-2 relative to the
+    output's largest magnitude: bf16 output rounding and another order of sums."""
+    from padt_tpu_torch.ops import cuda_quant as Q
+    from padt_tpu_torch.ops import quant
+
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    x = _randn(g, (m, k), dev)
+    wq = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    s = torch.exp(torch.randn((1, n), generator=g, device=dev) * 0.3) * (2.0 / (73 * k**0.5))
+    n0 = Q.launch_counts["int8_matmul"]
+    out = quant.int8_matmul(x, wq, s)
+    torch.cuda.synchronize()
+    assert Q.launch_counts["int8_matmul"] == n0 + 1
+    ref = quant.int8_matmul_plain(x, wq, s)
+    assert out.shape == (m, n) and out.dtype == torch.bfloat16
+    assert _err(out, ref) <= 2e-2 * ref.float().abs().max().item()
+
+
+def test_int8_matmul_strided_rows_and_leading_dims(dev):
+    """x as a column view of a wider buffer (row stride 384) with two leading
+    dims: no copy, the same result as the contiguous rows."""
+    from padt_tpu_torch.ops import quant
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    buf = _randn(g, (2, 9, 384), dev)
+    x = buf[..., 128:256]
+    wq = torch.randint(-127, 128, (128, 160), generator=g, device=dev, dtype=torch.int8)
+    s = torch.full((1, 160), 1e-3, device=dev)
+    out = quant.int8_matmul(x, wq, s)
+    torch.cuda.synchronize()
+    assert out.shape == (2, 9, 160)
+    assert torch.equal(out, quant.int8_matmul(x.contiguous(), wq, s))
+    assert _err(out, quant.int8_matmul_plain(x, wq, s)) <= 2e-2 * out.float().abs().max().item()
+
+
+def test_int8_matmul_refuses_what_the_kernel_does_not_take(dev):
+    from padt_tpu_torch.ops import quant
+
+    x = torch.zeros((4, 64), dtype=torch.bfloat16, device=dev)
+    wq = torch.zeros((64, 48), dtype=torch.int8, device=dev)
+    s = torch.ones((48,), device=dev)
+    with pytest.raises(ValueError, match="bf16"):
+        quant.int8_matmul(x.float(), wq, s)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        quant.int8_matmul(x[:, :60], wq[:60, :40], s[:40])
+    with pytest.raises(ValueError, match="without a copy"):
+        quant.int8_matmul(torch.zeros((4, 2, 64), dtype=torch.bfloat16, device=dev).transpose(0, 1), wq, s)

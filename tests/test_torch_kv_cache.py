@@ -11,41 +11,18 @@ tolerance of tests/test_kv_cache.py). Row stores: byte-identical.
 quantize_kv: an int8 value may differ by one quantum at a rounding
 boundary, scales within 1e-6 relative."""
 
-import contextlib
-import os
-
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 import torch
 
+from test_torch_common import jax_mode
 from padt_tpu.ops import kv_cache as JK
 from padt_tpu_torch.ops import cuda_kv
 from padt_tpu_torch.ops import kv_cache as TK
 
 T = lambda a: torch.as_tensor(np.array(a))
-
-
-@contextlib.contextmanager
-def _jax_mode(mode: str):
-    """mode "xla": the JAX plain branches; "pallas": the Pallas kernels in
-    TPU interpret mode."""
-    old = os.environ.get("PADT_PALLAS")
-    os.environ["PADT_PALLAS"] = "0" if mode == "xla" else "1"
-    try:
-        if mode == "pallas":
-            from jax.experimental.pallas import tpu as pltpu
-
-            with pltpu.force_tpu_interpret_mode():
-                yield
-        else:
-            yield
-    finally:
-        if old is None:
-            os.environ.pop("PADT_PALLAS", None)
-        else:
-            os.environ["PADT_PALLAS"] = old
 
 
 def _rel_close(a, b, tol):
@@ -105,7 +82,7 @@ def test_int8_decode_twin_matches_jax(mode):
     cache = lambda f: tuple(f(t[k]) for k in ("k8", "ks", "v8", "vs"))
     got = TK.decode_attention_int8(tq, *cache(T), T(valid), layer=li, fresh_kv=fresh(T))
     assert got.shape == (b, 1, hkv * g, hd) and got.dtype == tq.dtype
-    with _jax_mode(mode):
+    with jax_mode(mode):
         if mode == "xla":
             ref = JK.decode_attention_int8(jq, *cache(jnp.asarray), jnp.asarray(valid), layer=li, fresh_kv=fresh(jnp.asarray))
             _rel_close(got.numpy(), ref, 1e-4)
@@ -132,7 +109,7 @@ def test_int8_verify_twin_matches_jax(mode, kq):
     wp = np.array([c // 2, c - 3, 6, 0], np.int32)
     got = TK.decode_attention_int8_multi(tq, *cache(T), T(valid), T(wp), layer=li, fresh_kv=fresh(T))
     assert got.shape == (b, kq, hkv * g, hd)
-    with _jax_mode(mode):
+    with jax_mode(mode):
         ref = JK.decode_attention_int8_multi(jq, *cache(jnp.asarray), jnp.asarray(valid), jnp.asarray(wp), layer=li, fresh_kv=fresh(jnp.asarray))
     if mode == "xla":
         _rel_close(got.numpy(), ref, 1e-4)
@@ -165,7 +142,7 @@ def test_store_rows_twin_matches_jax(mode):
     cache = {k: T(t[k]).clone() for k in keys}
     out = TK.store_kv_rows_all_layers(*cache.values(), *(T(new[k]) for k in new), T(pos))
     assert all(o is cache[k] for o, k in zip(out, keys))  # in place
-    with _jax_mode(mode):
+    with jax_mode(mode):
         ref = JK.store_kv_rows_all_layers(*(jnp.asarray(t[k]) for k in keys), *(jnp.asarray(new[k]) for k in new), jnp.asarray(pos))
     for k, r in zip(keys, ref):
         np.testing.assert_array_equal(cache[k].numpy(), np.asarray(r), err_msg=k)
@@ -176,7 +153,7 @@ def test_store_rows_twin_matches_jax(mode):
     n_rows = np.array([kq, 2, 0, kq, 0], np.int32)
     cache = {k: T(t[k]).clone() for k in keys}
     TK.store_kv_rows_k_all_layers(*cache.values(), *(T(new[k]) for k in new), T(pos), n_rows=T(n_rows))
-    with _jax_mode(mode):
+    with jax_mode(mode):
         ref = JK.store_kv_rows_k_all_layers(
             *(jnp.asarray(t[k]) for k in keys), *(jnp.asarray(new[k]) for k in new), jnp.asarray(pos), n_rows=jnp.asarray(n_rows),
         )

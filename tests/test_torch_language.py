@@ -8,7 +8,7 @@ import numpy as np
 import jax.numpy as jnp
 import torch
 
-from test_torch_common import close, tiny_params
+from test_torch_common import close, tiny_params, torch_cfg
 from padt_tpu.models import language as JL
 from padt_tpu.models import padt as JP
 from padt_tpu_torch.models import language as TL
@@ -31,12 +31,12 @@ def _inputs(cfg, b=3, l=24, seed=0):
 
 def test_prefill_and_decode_match_jax():
     cfg, jp, tp = tiny_params(1)
-    tc = cfg.text
+    tc, ttc = cfg.text, torch_cfg(cfg).text
     embeds, valid, pos3 = _inputs(cfg)
     b, l = valid.shape
     cap = l + 3
     jh, jcache = JL.prefill(jp["text"], tc, jnp.asarray(embeds), jnp.asarray(pos3), jnp.asarray(valid), cap)
-    th, tcache = TL.prefill(tp["text"], tc, T(embeds), T(pos3), T(valid), cap)
+    th, tcache = TL.prefill(tp["text"], ttc, T(embeds), T(pos3), T(valid), cap)
     close(th, np.asarray(jh), rows=valid)
     close(tcache.k[:, :, :l].permute(1, 2, 0, 3, 4), np.asarray(jcache.k)[:, :, :l].transpose(1, 2, 0, 3, 4), rows=valid)
     close(tcache.v[:, :, :l].permute(1, 2, 0, 3, 4), np.asarray(jcache.v)[:, :, :l].transpose(1, 2, 0, 3, 4), rows=valid)
@@ -47,7 +47,7 @@ def test_prefill_and_decode_match_jax():
         emb = r.randn(b, 1, tc.hidden_size).astype(np.float32)
         p = (last + 1 + step)[:, :, None].astype(np.int32)
         jh, jcache = JL.decode_step(jp["text"], tc, jnp.asarray(emb), jnp.asarray(p), jcache)
-        th, tcache = TL.decode_step(tp["text"], tc, T(emb), T(p), tcache)
+        th, tcache = TL.decode_step(tp["text"], ttc, T(emb), T(p), tcache)
         close(th, np.asarray(jh))
         assert tcache.length == int(jcache.length) == l + step + 1
         np.testing.assert_array_equal(tcache.valid.numpy(), np.asarray(jcache.valid))
@@ -62,8 +62,9 @@ def test_prefill_batch_chunk_is_exact_and_int8_is_the_next_slice():
     one quantum at a rounding boundary), then three int8 decode steps on
     packed weights give the same hidden states at 1e-5."""
     cfg, jp, tp = tiny_params(1)
+    ttc = torch_cfg(cfg).text
     embeds, valid, pos3 = _inputs(cfg, b=4)
-    args = (tp["text"], cfg.text, T(embeds), T(pos3), T(valid), 30)
+    args = (tp["text"], ttc, T(embeds), T(pos3), T(valid), 30)
     h1, c1 = TL.prefill(*args)
     h2, c2 = TL.prefill(*args, batch_chunk=2)
     close(h2, h1.numpy())
@@ -74,7 +75,7 @@ def test_prefill_batch_chunk_is_exact_and_int8_is_the_next_slice():
     jpt = JP.pack_inference_params(jp)["text"]
     tpt = TP.pack_inference_params(tp)["text"]
     jh, jc = JL.prefill(jpt, cfg.text, jnp.asarray(embeds), jnp.asarray(pos3), jnp.asarray(valid), cap, kv_dtype="int8")
-    th, tc = TL.prefill(tpt, cfg.text, T(embeds), T(pos3), T(valid), cap, kv_dtype="int8", batch_chunk=2)
+    th, tc = TL.prefill(tpt, ttc, T(embeds), T(pos3), T(valid), cap, kv_dtype="int8", batch_chunk=2)
     close(th, np.asarray(jh), rows=valid)
     live = np.zeros((b, cap), bool)
     live[:, :l] = valid
@@ -87,7 +88,7 @@ def test_prefill_batch_chunk_is_exact_and_int8_is_the_next_slice():
         emb = r.randn(b, 1, cfg.text.hidden_size).astype(np.float32)
         p = (pos3[:, :, -1] + 1 + step)[:, :, None].astype(np.int32)
         jh, jc = JL.decode_step(jpt, cfg.text, jnp.asarray(emb), jnp.asarray(p), jc)
-        th, tc = TL.decode_step(tpt, cfg.text, T(emb), T(p), tc)
+        th, tc = TL.decode_step(tpt, ttc, T(emb), T(p), tc)
         close(th, np.asarray(jh))
         assert tc.length == int(jc.length) == l + step + 1
         np.testing.assert_array_equal(tc.valid.numpy(), np.asarray(jc.valid))

@@ -15,8 +15,9 @@ import numpy as np
 import jax
 import torch
 
-from test_torch_common import close, seeded_image, tiny_params, tiny_processor
+from test_torch_common import close, port_image, seeded_image, tiny_params, tiny_processor, torch_cfg
 from padt_tpu.eval.harness import InferenceEngine as JaxEngine
+from padt_tpu.models import padt as JP
 from padt_tpu.serve import Request as JRequest
 from padt_tpu.serve import ServeEngine as JServe
 from padt_tpu.serve import SharedPrefix as JPrefix
@@ -70,7 +71,7 @@ def _same_completions(jres, tres, hidden=True):
 
 
 def _engines(cfg, jp, tp, **kw):
-    return JServe(jp, cfg, **kw), ServeEngine(tp, cfg, **kw)
+    return JServe(jp, cfg, **kw), ServeEngine(tp, torch_cfg(cfg), **kw)
 
 
 def test_engine_matches_generate_with_recycling():
@@ -97,7 +98,7 @@ def test_engine_matches_generate_with_recycling():
     by = _by_uid(tres)
     for i, (b, bud) in enumerate(zip(batches, budgets)):
         tb = {k: torch.as_tensor(np.asarray(v)) for k, v in b.data.items()}
-        out = TP.generate(tp, cfg, tb, bud, torch.as_tensor(b.rope_deltas), kv_cache_dtype="int8")
+        out = TP.generate(tp, torch_cfg(cfg), tb, bud, torch.as_tensor(b.rope_deltas), kv_cache_dtype="int8")
         ng = int(out.num_generated[0])
         assert by[i].n_gen == ng
         np.testing.assert_array_equal(by[i].tokens, out.tokens[0, :ng].numpy())
@@ -136,8 +137,8 @@ def test_engine_speculative_matches_plain():
     budgets = [6, 11, 4, 9]
     kw = dict(n_slots=2, max_new_tokens=12, prompt_len=128, prefill_bucket=1, chunk_steps=3, patch_bucket=PATCHES, collect_hidden=True)
     jreqs, treqs = _requests(batches, budgets)
-    plain, _ = ServeEngine(tp, cfg, **kw).run(treqs)
-    spec, sstats = ServeEngine(tp, cfg, speculative=4, **kw).run(treqs)
+    plain, _ = ServeEngine(tp, torch_cfg(cfg), **kw).run(treqs)
+    spec, sstats = ServeEngine(tp, torch_cfg(cfg), speculative=4, **kw).run(treqs)
     jspec, jstats = JServe(jp, cfg, speculative=4, **kw).run(jreqs)
     p = _by_uid(plain)
     for c in spec:
@@ -177,8 +178,8 @@ def test_prefix_cache_matches_full_prefill():
         return [R(prefix=pre[img_of[i]], suffix_ids=suffixes[i], max_new_tokens=budgets[i], uid=i) for i in range(len(prompts))]
 
     _, treqs_full = _requests(full, budgets)
-    tfull, _ = ServeEngine(tp, cfg, **kw).run(treqs_full)
-    teng = ServeEngine(tp, cfg, **kw)
+    tfull, _ = ServeEngine(tp, torch_cfg(cfg), **kw).run(treqs_full)
+    teng = ServeEngine(tp, torch_cfg(cfg), **kw)
     treqs = prefix_reqs(Request, SharedPrefix)
     tpfx, stats = teng.run(treqs)
     jpfx, jstats = JServe(jp, cfg, **kw).run(prefix_reqs(JRequest, JPrefix))
@@ -234,10 +235,10 @@ def test_suffix_pass_never_touches_other_slots_kv():
             eng._dispatch_chunk(ctx)
             eng._sync_harvest(ctx)
         comps, _ = eng._finish_run(ctx)
-        solo, _ = type(eng)(eng.params, cfg, **kw).run([req_a])
+        solo, _ = type(eng)(eng.params, eng.cfg, **kw).run([req_a])
         return _by_uid(comps), solo[0]
 
-    t, tsolo = drive(ServeEngine(tp, cfg, **kw), Request, SharedPrefix, True)
+    t, tsolo = drive(ServeEngine(tp, torch_cfg(cfg), **kw), Request, SharedPrefix, True)
     j, _ = drive(JServe(jp, cfg, **kw), JRequest, JPrefix, False)
     np.testing.assert_array_equal(t[0].tokens, tsolo.tokens)
     for uid in (0, 1):
@@ -256,11 +257,13 @@ def test_run_stream_matches_jax_and_run_batch():
     sizes = [(181, 117)] * len(images)
     kw = dict(n_slots=2, prefill_bucket=1, chunk_steps=3, patch_bucket=PATCHES)
     jeng = JaxEngine(jp, cfg, tiny_processor(cfg), max_new_tokens=8, canvas_hw=(9, 9), compact_pixels=False)
-    teng = InferenceEngine(tp, cfg, tiny_processor(cfg), max_new_tokens=8, canvas_hw=(9, 9), compact_pixels=False)
+    tcfg = torch_cfg(cfg)
+    teng = InferenceEngine(tp, tcfg, tiny_processor(tcfg), max_new_tokens=8, canvas_hw=(9, 9), compact_pixels=False)
+    timages = [port_image(im) for im in images]
     for share in (False, True):
         extra = {} if share else {"prompt_bucket": 128}
         jgot = jeng.run_stream(prompts, images, image_sizes=sizes, share_prefix=share, **kw, **extra)
-        tgot = teng.run_stream(prompts, images, image_sizes=sizes, share_prefix=share, **kw, **extra)
+        tgot = teng.run_stream(prompts, timages, image_sizes=sizes, share_prefix=share, **kw, **extra)
         assert [r.completion for r in tgot] == [r.completion for r in jgot]
         for tr, jr in zip(tgot, jgot):
             assert [(o.label, o.vrt_string, o.bbox_xywh_px) for o in tr.objects] == [
@@ -270,8 +273,49 @@ def test_run_stream_matches_jax_and_run_batch():
             plain = tgot
     assert sum(len(r.objects) for r in plain) > 0
     assert "qkv_w" in teng.params["text"]["layers"]  # adopted from the serve engine
-    ref = teng.run_batch(prompts, images, image_sizes=sizes, patch_bucket=PATCHES, prompt_bucket=128)
+    ref = teng.run_batch(prompts, timages, image_sizes=sizes, patch_bucket=PATCHES, prompt_bucket=128)
     assert [r.completion for r in ref] == [r.completion for r in plain]
     split = teng.pop_stream_stats()
     assert split["generated_tokens"] > 0 and split["engine_decode_s"] > 0
     assert split["decode_steps"] > 0 and split["suffix_passes"] > 0  # the share_prefix run's suffix passes
+
+
+def test_engine_on_int8_weights_matches_jax():
+    """The serve engine on int8 packed text-layer weights (each side
+    quantized by its own `quantize_params`; the engine packs them): 5 ragged
+    requests through a recycling 3-slot pool give the JAX engine's tokens,
+    counts and step counters."""
+    cfg, jp, tp = _params()
+    jq, tq = JP.quantize_params(jp), TP.quantize_params(tp)
+    proc = tiny_processor(cfg)
+    batches = _batches(cfg, proc, ["detect the cat", "find a dog", "locate the car", "what is here", "segment it"], 21)
+    budgets = [4, 9, 3, 8, 6]
+    kw = dict(n_slots=3, max_new_tokens=12, prompt_len=128, prefill_bucket=1, chunk_steps=2, collect_hidden=True, patch_bucket=PATCHES)
+    jeng, teng = _engines(cfg, jq, tq, **kw)
+    assert "qkv_w_q" in teng.params["text"]["layers"] and "gateup_w_s" in teng.params["text"]["layers"]
+    jreqs, treqs = _requests(batches, budgets)
+    jres, jstats = jeng.run(jreqs)
+    tres, tstats = teng.run(treqs)
+    _same_completions(jres, tres)
+    assert any(len(set(c.tokens.tolist())) > 2 for c in tres)
+    assert (tstats.completions, tstats.generated_tokens, tstats.decode_steps) == (
+        jstats.completions, jstats.generated_tokens, jstats.decode_steps,
+    )
+
+
+def test_run_batch_and_run_stream_on_quantized_init():
+    """The 7B path's entry points at the tiny size: params straight from
+    `init_padt_params_quantized(packed=True)`, then `run_batch` (bf16 KV)
+    and `run_stream` (int8 KV) on them, well-formed results of every
+    request; run_stream leaves the weights as they were (already packed)."""
+    cfg = torch_cfg(tiny_params(0)[0])
+    params = TP.init_padt_params_quantized(cfg, torch.Generator().manual_seed(3), "cpu", torch.float32, packed=True)
+    images = [port_image(seeded_image((1, 8, 12), 40 + i, u8=False)) for i in range(5)]
+    prompts = ['find "a"', 'find "b"', "what is it", 'where is "c"', "segment it"]
+    teng = InferenceEngine(params, cfg, tiny_processor(cfg), max_new_tokens=6, canvas_hw=(9, 9), compact_pixels=False)
+    batch = teng.run_batch(prompts[:2], images[:2], patch_bucket=PATCHES, prompt_bucket=128)
+    stream = teng.run_stream(prompts, images, n_slots=2, prefill_bucket=2, chunk_steps=3, patch_bucket=PATCHES, prompt_bucket=128)
+    assert len(batch) == 2 and len(stream) == 5 and all(isinstance(r.completion, str) for r in batch + stream)
+    assert teng.params["text"]["layers"] is params["text"]["layers"]
+    stats = teng.pop_stream_stats()
+    assert stats["generated_tokens"] >= 5 and stats["decode_steps"] > 0

@@ -8,7 +8,7 @@ import pytest
 import jax.numpy as jnp
 import torch
 
-from test_torch_common import close, jax_batch, seeded_image, tiny_params, tiny_processor, torch_batch
+from test_torch_common import close, jax_batch, seeded_image, tiny_params, tiny_processor, torch_batch, torch_cfg
 from padt_tpu.models import padt as JP
 from padt_tpu.models.vision import vision_forward as jax_vision_forward
 from padt_tpu.models.vision_geom import vision_geometry
@@ -35,7 +35,7 @@ def test_vision_forward_matches_jax(slots):
         pack_index=None if geo.pack_index is None else jnp.asarray(geo.pack_index),
     )
     tm, th, (tc, ts) = vision_forward(
-        tp["vision"], cfg.vision, *map(T, args),
+        tp["vision"], torch_cfg(cfg).vision, *map(T, args),
         pack_index=None if geo.pack_index is None else T(geo.pack_index),
     )
     for i in range(len(GRIDS)):
@@ -48,20 +48,21 @@ def test_vision_forward_matches_jax(slots):
 
 def test_u8_wire_path_matches_f32_rows_and_jax():
     cfg, jp, tp = tiny_params(0)
+    tcfg = torch_cfg(cfg)
     proc = tiny_processor(cfg)
     prompts = ['find "x"', 'find "y"']
     b8 = proc.build_batch(prompts, [seeded_image(g, i, u8=True) for i, g in enumerate(GRIDS)], patch_bucket=cfg.max_image_patches)
     bf = proc.build_batch(prompts, [seeded_image(g, i, u8=False) for i, g in enumerate(GRIDS)], patch_bucket=cfg.max_image_patches)
     assert "pixel_patches_u8" in b8.data and "pixel_patches" in bf.data
     # the device-side expansion equals the host rows cast to bf16, exactly
-    exp = TP._expand_pixels_u8(cfg, T(b8.data["pixel_patches_u8"]), T(b8.data["num_patches"]))
+    exp = TP._expand_pixels_u8(tcfg, T(b8.data["pixel_patches_u8"]), T(b8.data["num_patches"]))
     assert torch.equal(exp, T(bf.data["pixel_patches"]).to(torch.bfloat16))
     np.testing.assert_array_equal(
         exp[0, :96].float().numpy(),
         torch.tensor(expand_u8_rows(b8.data["pixel_patches_u8"][0, :96])).to(torch.bfloat16).float().numpy(),
     )
-    a8 = TP.run_vision(tp, cfg, torch_batch(b8.data))
-    af = TP.run_vision(tp, cfg, torch_batch(bf.data))
+    a8 = TP.run_vision(tp, tcfg, torch_batch(b8.data))
+    af = TP.run_vision(tp, tcfg, torch_batch(bf.data))
     assert torch.equal(a8.merged, af.merged) and torch.equal(a8.high_res, af.high_res)
     ja = JP.run_vision(jp, cfg, jax_batch(b8.data))
     for i, g in enumerate(GRIDS):
@@ -75,7 +76,8 @@ def test_vision_chunking_is_exact():
     proc = tiny_processor(cfg)
     grids = GRIDS * 2
     b = proc.build_batch(['a'] * 4, [seeded_image(g, i, u8=True) for i, g in enumerate(grids)], patch_bucket=cfg.max_image_patches)
-    whole = TP.run_vision(tp, cfg, torch_batch(b.data))
-    parts = TP.run_vision(tp, cfg.replace(vision_chunk_size=2), torch_batch(b.data))
+    tcfg = torch_cfg(cfg)
+    whole = TP.run_vision(tp, tcfg, torch_batch(b.data))
+    parts = TP.run_vision(tp, tcfg.replace(vision_chunk_size=2), torch_batch(b.data))
     for x, y in zip(whole, parts):
         close(x, y.numpy())
