@@ -18,7 +18,11 @@ one process per source, into build/padt_tpu_torch/), then:
      pass and one int8 decode step of a tiny model on the card against the
      plain float32 CPU path, with dense bf16 weights and again with int8
      weights (`quantize_params` + `pack_inference_params` run on the card,
-     every text-layer product through H7);
+     every text-layer product through H7); then `padt_loss` with its
+     gradients (frozen tower, all four losses) on the card in bf16 against
+     the float32 CPU path (loss within 5e-2 relative, each trainable leaf's
+     gradient within 0.1 in relative norm, the whole gradient's cosine at
+     least 0.995);
   4. runs PaDT-3B REC inference through `InferenceEngine.run_batch` (random
      weights from a seeded generator, 4 prompts over 644px-class images of
      46x46 patches, 32 new tokens, bf16 KV) with the launch counters reset
@@ -32,7 +36,19 @@ one process per source, into build/padt_tpu_torch/), then:
      counters reset just before and read just after; checks the outputs and
      the launch floors, and prints wall, device prefill / decode seconds,
      decode tok/s and slot utilization;
-  6. [7b]: frees PaDT-3B, builds PaDT-7B at full depth and width with int8
+  6. [train]: trains PaDT-3B through `PaDTTrainer.train()` for 4 steps on
+     the same (random, seeded) weights: frozen tower, AdamW (lr 2e-5, max
+     grad norm 1.0), batch 8 of a synthetic 32-sample REC dataset (46x46
+     patches, one box and one RLE mask each), prompt bucket 640 +
+     completion bucket 64, all four losses; with the launch counters reset
+     before and read after, it checks the exact launches per step (H8 = H9
+     = 36, H2 and H1 for the forward, the checkpoint recompute and H1's
+     VJP, and the frozen tower), finite positive loss and grad norm, every
+     trainable text leaf moved (or, for the norm weights of 1.0 that an
+     update this small cannot move in bf16, reached by a gradient), the
+     tower bitwise unchanged, and prints s/step, tokens/s, MFU and peak
+     memory;
+  7. [7b]: frees PaDT-3B, builds PaDT-7B at full depth and width with int8
      packed text-layer weights on the card (`init_padt_params_quantized`,
      seeded), holds H7 against its twin at the 7B products' shapes (M = 8
      decode rows and M = 2560 prefill rows, walking the 28 layers' weights),
@@ -40,7 +56,7 @@ one process per source, into build/padt_tpu_torch/), then:
      requests (int8 KV, 8 slots, bucket 4, prompt 640, 32 new tokens), each
      with the launch counters reset before and read after, checks the
      outputs and the launch floors, and prints the times;
-  7. prints the kernels' JSON line, then the result line
+  8. prints the kernels' JSON line, then the result line
      {"ok": true, "device": {...}} last.
 Any failure raises, and the script exits non-zero without the result line.
 It needs CUDA; it imports nothing of JAX and nothing of the JAX package.
@@ -61,6 +77,10 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL = 2e-2  # bf16 outputs of magnitude ~1: output rounding + sum order
 TINY_REL_TOL = 5e-2  # tiny model in bf16 with kernels vs float32 plain path
+TINY_GRAD_REL_TOL = 0.1  # each trainable leaf's gradient, relative norm, bf16 card vs float32 CPU
+TINY_GRAD_COS = 0.995  # cosine of the whole gradient, bf16 card vs float32 CPU
+TRAIN_STEPS = 4
+TRAIN_BATCH, TRAIN_LEN = 8, 640 + 64  # the train step: prompt bucket 640 + completion bucket 64
 GRID = (1, 46, 46)  # a 644x644 image in 14px patches
 PATCHES = 2304
 PROMPT_LEN = 640
@@ -149,6 +169,8 @@ def measure(cases, card):
     for c in cases:
         out, ref = c["kern"](), c["plain"]()
         torch.cuda.synchronize()
+        if "view" in c:  # what of the outputs is compared
+            out, ref = c["view"](out), c["view"](ref)
         outs = out if isinstance(out, (tuple, list)) else (out,)
         refs = ref if isinstance(ref, (tuple, list)) else (ref,)
         err = max((a.float() - r.float()).abs().max().item() for a, r in zip(outs, refs))
@@ -266,6 +288,65 @@ def _text_cases(dev, rnd, b, h, hkv, hd, path, tag):
     ]
 
 
+def _train_cases(dev, rnd, b, l, h, hkv, hd, tag, names=("segment_flash_fwd", "rope_qk", "flash_bwd_dq", "flash_bwd_dkv")):
+    """The train step's text-layer kernels on a causal GQA bucket of `b`
+    rows of `l` tokens, row 0 left-padded by 100 tokens: H2 with its LSE,
+    H1 with the sin negated (the rope's VJP), H8 and H9 from that LSE and
+    delta. The yardstick of H8 and H9 is the backward of
+    scaled_dot_product_attention (the same boolean mask, enable_gqa), timed
+    as torch.autograd.grad on its output without the forward."""
+    import torch.nn.functional as F
+
+    from padt_tpu_torch.ops import cuda_attention as C
+    from padt_tpu_torch.ops import cuda_flash_bwd as FB
+    from padt_tpu_torch.ops.rope import mrope_cos_sin
+
+    pos = torch.arange(l, device=dev)[None].expand(b, l) - torch.tensor([[100]] + [[0]] * (b - 1), device=dev)
+    tcos, tsin = mrope_cos_sin(pos.clamp(min=0)[None].expand(3, b, l), hd, (16, 24, 24))
+    q, g = rnd(b, l, h, hd), rnd(b, l, h, hd)
+    k, v = rnd(b, l, hkv, hd), rnd(b, l, hkv, hd)
+    gq, gk = rnd(b, l, h * hd), rnd(b, l, hkv * hd)
+    seg = ((pos >= 0).int() - 1).contiguous()
+    pairs, mask = _visible_pairs(seg, seg, True)
+    scale = hd**-0.5
+    out, lse = C.segment_flash_fwd(q, k, v, seg, seg, True, scale, return_lse=True)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, g, seg, seg, lse, delta, True, scale)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    sd_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None], scale=scale, enable_gqa=True)
+    sdpa_bwd = lambda: torch.autograd.grad(sd_out, (qt, kt, vt), g.transpose(1, 2), retain_graph=True)
+    reads = nbytes(q, k, v, g, lse, delta, seg)
+    shape = f"{tag}train step causal GQA {b}x{l}, {h}/{hkv} heads x{hd}, left pad 100"
+    # a row with no visible key carries LSE 1e30: compared as 0 on both sides
+    finite_lse = lambda r: (r[0], torch.where(r[1] >= 1e29, torch.zeros_like(r[1]), r[1]))
+    cases = {
+        "segment_flash_fwd": dict(
+            name="segment_flash_fwd", path="train", source="segment_flash.cu", replaces="padt_tpu/ops/pallas_attention.py:65",
+            tol=TOL, shape=shape + ", with its LSE", view=finite_lse,
+            kern=lambda: C.segment_flash_fwd(q, k, v, seg, seg, True, scale, return_lse=True),
+            plain=lambda: C.segment_flash_plain(q, k, v, seg, seg, True, scale, return_lse=True),
+            library=_sdpa(q, k, v, mask[:, None], scale, gqa=True),
+            bound=(2 * nbytes(q) + nbytes(k, v, seg, lse), 4 * hd * h * pairs, BF16_TENSOR_FLOPS)),
+        "rope_qk": dict(
+            name="rope_qk", path="train", source="rope_qk.cu", replaces="padt_tpu/ops/pallas_attention.py:574", tol=TOL,
+            shape=f"{tag}text {b}x{l}x({h}+{hkv})x{hd}, sin negated: the rope's VJP",
+            kern=lambda: C.rope_qk(gq, gk, tcos, tsin, h, hkv, sin_sign=-1.0),
+            plain=lambda: C.rope_qk_plain(gq, gk, tcos, tsin, h, hkv, sin_sign=-1.0),
+            bound=(2 * nbytes(gq, gk) + nbytes(tcos, tsin), 3 * (gq.numel() + gk.numel()), FP32_FLOPS)),
+        "flash_bwd_dq": dict(
+            name="flash_bwd_dq", path="train", source="flash_bwd.cu", replaces="padt_tpu/ops/pallas_attention.py:348",
+            tol=TOL, relative=True, shape=shape + ", dq",
+            kern=lambda: FB.flash_bwd_dq(*args), plain=lambda: FB.flash_bwd_dq_plain(*args), library=sdpa_bwd,
+            bound=(reads + nbytes(q), 6 * hd * h * pairs, BF16_TENSOR_FLOPS)),
+        "flash_bwd_dkv": dict(
+            name="flash_bwd_dkv", path="train", source="flash_bwd.cu", replaces="padt_tpu/ops/pallas_attention.py:392",
+            tol=TOL, relative=True, shape=shape + ", dk and dv",
+            kern=lambda: FB.flash_bwd_dkv(*args), plain=lambda: FB.flash_bwd_dkv_plain(*args), library=sdpa_bwd,
+            bound=(reads + nbytes(k, v), 8 * hd * h * pairs, BF16_TENSOR_FLOPS)),
+    }
+    return [cases[n] for n in names]
+
+
 def phase_kernels(dev, card):
     """Each kernel vs its twin at main-path shapes (PaDT-3B's, and PaDT-7B's
     where its head counts differ); H7's lines come with the 7B weights in
@@ -323,6 +404,10 @@ def phase_kernels(dev, card):
         *_text_cases(dev, rnd, BATCH, c7.num_attention_heads, c7.num_key_value_heads, c7.head_dim, "7b", "7B "),
         *_int8_attn_cases(dev, g, rnd, c7.num_hidden_layers, SERVE_SLOTS, c7.num_key_value_heads,
                           c7.num_attention_heads // c7.num_key_value_heads, c7.head_dim, KV_CAP, "7b", "7B ", False),
+        # the train step's text layers: 8 rows of 640 + 64 tokens; and H9's GQA fold at 7B's 7:1
+        *_train_cases(dev, rnd, TRAIN_BATCH, TRAIN_LEN, c3.num_attention_heads, c3.num_key_value_heads, c3.head_dim, ""),
+        *_train_cases(dev, rnd, BATCH, TRAIN_LEN, c7.num_attention_heads, c7.num_key_value_heads, c7.head_dim, "7B ",
+                      names=("flash_bwd_dkv",)),
     ]
     return measure(cases, card)
 
@@ -355,9 +440,9 @@ PROMPTS = [
 def _counters():
     """The kernel wrappers' modules, each with launch_counts and
     reset_launch_counts."""
-    from padt_tpu_torch.ops import cuda_attention, cuda_kv, cuda_quant
+    from padt_tpu_torch.ops import cuda_attention, cuda_flash_bwd, cuda_kv, cuda_quant
 
-    return [cuda_attention, cuda_kv, cuda_quant]
+    return [cuda_attention, cuda_flash_bwd, cuda_kv, cuda_quant]
 
 
 def _processor(cfg):
@@ -561,6 +646,136 @@ def phase_tiny_reference(dev):
                 f"relative to max {rel:.3e} (tol {TINY_REL_TOL})")
             if not rel <= TINY_REL_TOL:
                 raise AssertionError(f"tiny {name} ({weights} weights) disagrees with the CPU reference: {rel}")
+
+
+def phase_tiny_train(dev):
+    """padt_loss and its gradients on the tiny model (frozen tower, all four
+    losses, a batch of two synthetic REC samples built by the data
+    pipeline): bf16 on the card, through H1-H3 forward, H2 with its LSE,
+    H8/H9 and H1's VJP, vs float32 on the CPU through the twins, from the
+    same weights. Leaves whose reference gradient is under 1e-6 of the
+    largest leaf's are printed but not held to the relative bound: the
+    attention key biases, whose exact gradient is 0 (the softmax is blind
+    to a shift of every score of a row), and the last decoder block's
+    memory update, which only the mask head reads; bf16 rounding is all
+    that is left of them."""
+    import numpy as np
+
+    from padt_tpu_torch import padt_tiny
+    from padt_tpu_torch.models import padt as P
+    from padt_tpu_torch.ops import cuda_flash_bwd as FB
+    from padt_tpu_torch.tools.profile_train import synthetic_rec
+    from padt_tpu_torch.train import train_step as TS
+    from padt_tpu_torch.train.data import build_train_batch
+    from padt_tpu_torch.utils.mock_tokenizer import make_tiny_tokenizer
+    from padt_tpu_torch.vrt.processor import VisionTextProcessor
+
+    cfg = padt_tiny()
+    proc = VisionTextProcessor(make_tiny_tokenizer(cfg), cfg, seq_bucket=32, patch_bucket=cfg.max_image_patches)
+    proc.prepare(cfg.text.vocab_size)
+    rows, images = synthetic_rec(2, grid=(1, 16, 16), seed=3)
+    tb = build_train_batch(rows, proc, cfg, np.random.RandomState(0), images=images, canvas_hw=(16, 16))
+    lcfg = TS.LossConfig(freeze_vision=True)
+    p32 = P.init_padt_params(cfg, torch.Generator().manual_seed(2), "cpu", torch.float32)
+
+    def run(device, dtype):
+        params = _tree_to(p32, device, dtype)
+        trainable = [(n, t) for n, t in TS.flat_leaves(params) if not n.startswith("vision.")]
+        for _, t in trainable:
+            t.requires_grad_(True)
+        batch = {k: torch.as_tensor(v, device=device) for k, v in tb.model.items()}
+        loss, _ = TS.padt_loss(params, cfg, batch, tb.prompt_length, tb.meta["canvas_hw"], lcfg, False)
+        loss.backward()
+        return float(loss), {n: t.grad.float().cpu() for n, t in trainable}
+
+    n0 = FB.launch_counts["flash_bwd_dkv"]
+    loss_ref, g_ref = run("cpu", torch.float32)
+    loss_dev, g_dev = run(dev, torch.bfloat16)
+    torch.cuda.synchronize()
+    if FB.launch_counts["flash_bwd_dkv"] - n0 != cfg.text.num_hidden_layers:
+        raise AssertionError("the tiny training check did not run H9 in every text layer on the card")
+    rel_loss = abs(loss_dev - loss_ref) / abs(loss_ref)
+    norms = {n: float(g.norm()) for n, g in g_ref.items()}
+    floor = 1e-6 * max(norms.values())
+    rels = {n: float((g_dev[n] - g).norm()) / norms[n] for n, g in g_ref.items() if norms[n] > floor}
+    flat_ref = torch.cat([g.flatten() for g in g_ref.values()])
+    flat_dev = torch.cat([g_dev[n].flatten() for n in g_ref])
+    cos = float(flat_ref @ flat_dev / (flat_ref.norm() * flat_dev.norm()))
+    worst = max(rels, key=rels.get)
+    log(f"[reference] tiny padt_loss, card bf16 vs CPU float32: loss {loss_dev:.5f} vs {loss_ref:.5f} (relative "
+        f"{rel_loss:.3e}, tol {TINY_REL_TOL}); gradients of {len(rels)} trainable leaves: worst relative norm "
+        f"{rels[worst]:.3e} ({worst}, tol {TINY_GRAD_REL_TOL}), cosine of the whole gradient {cos:.6f} "
+        f"(tol >= {TINY_GRAD_COS}); {len(norms) - len(rels)} leaves under the floor: "
+        + ", ".join(f"{n} {norms[n]:.1e}" for n in norms if n not in rels))
+    if not (rel_loss <= TINY_REL_TOL and rels[worst] <= TINY_GRAD_REL_TOL and cos >= TINY_GRAD_COS):
+        raise AssertionError("the tiny training step on the card disagrees with the CPU reference")
+
+
+def _tree_to(tree, device, dtype):
+    """A copy of a parameter tree as fresh leaf tensors."""
+    return {k: _tree_to(v, device, dtype) if isinstance(v, dict) else v.detach().to(device, dtype).clone() for k, v in tree.items()}
+
+
+def phase_train(dev, card, params):
+    """PaDT-3B SFT on the card through PaDTTrainer.train(): TRAIN_STEPS
+    steps of the single-card configuration (profile_train.train_args) on
+    `params`, which it updates in place, with the launch counters reset
+    just before and read just after. Returns the launch counts."""
+    import tempfile
+
+    import numpy as np
+
+    from padt_tpu_torch.tools.profile_train import flops_per_step, make_trainer
+    from padt_tpu_torch.train.train_step import flat_leaves, train_step_launches
+
+    with tempfile.TemporaryDirectory() as out:
+        cfg, trainer = make_trainer(dev, TRAIN_BATCH * TRAIN_STEPS, out, params=params)
+        text_before = {n: t.detach().clone() for n, t in flat_leaves(trainer.params["text"])}
+        vision_before = {n: t.detach().clone() for n, t in flat_leaves(trainer.params["vision"])}
+        counters = _counters()
+        for c in counters:
+            c.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {k: v for c in counters for k, v in c.launch_counts.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if trainer.global_step != TRAIN_STEPS or len(metrics) != TRAIN_STEPS:
+        raise AssertionError(f"the trainer ran {trainer.global_step} steps, expected {TRAIN_STEPS}")
+    for m in metrics:
+        if not all(np.isfinite(m[k]) and m[k] > 0 for k in ("loss", "grad_norm", "sft_loss", "bbox_loss", "mask_loss")):
+            raise AssertionError(f"train step {m['step']}: a loss or the grad norm is not finite and positive: {m}")
+    per_step = {k: n * TRAIN_STEPS for k, n in train_step_launches(cfg).items()}
+    if {k: counts[k] for k in per_step} != per_step:
+        raise AssertionError(f"train launches {counts}, expected exactly {per_step} ({TRAIN_STEPS} steps)")
+    moved, unreached = [], []
+    exp_avg = {n: trainer.optimizer.inner.state[t]["exp_avg"] for n, t in trainer.optimizer.leaves}
+    for n, t in flat_leaves(trainer.params["text"]):
+        if not torch.equal(t.detach(), text_before[n]):
+            moved.append(n)
+        elif not (bool((text_before[n] == 1).all()) and float(exp_avg["text." + n].abs().max()) > 0):
+            unreached.append(n)
+    if unreached:
+        raise AssertionError(f"trainable text leaves that neither moved nor are bf16 ones reached by a gradient: {unreached}")
+    if not all(torch.equal(t, vision_before[n]) for n, t in flat_leaves(trainer.params["vision"])):
+        raise AssertionError("the frozen tower changed")
+    steps = [m["step_time_s"] for m in metrics[1:]]  # step 1 warms up
+    s_step = float(np.mean(steps))
+    tokens = TRAIN_BATCH * TRAIN_LEN
+    flops = flops_per_step(cfg, trainer.params, TRAIN_BATCH, TRAIN_LEN, TRAIN_LEN - 640, PATCHES, True)
+    log(f"[train] padt_3b SFT, frozen tower, AdamW lr 2e-5, batch {TRAIN_BATCH} x {TRAIN_LEN} tokens, all four losses: "
+        f"{TRAIN_STEPS} steps in {wall:.2f} s wall; losses " + ", ".join(f"{m['loss']:.4f}" for m in metrics)
+        + "; grad norms " + ", ".join(f"{m['grad_norm']:.4f}" for m in metrics) + f"; warm-up {[m['warmup'] for m in metrics]}")
+    log(f"[train] s/step {s_step:.4f} (steps 2-{TRAIN_STEPS}: " + ", ".join(f"{x:.4f}" for x in steps) + f"), "
+        f"{tokens / s_step:.1f} tokens/s, MFU {flops / s_step / BF16_TENSOR_FLOPS:.4f} ({flops / 1e12:.1f} TFLOP per step "
+        f"over {BF16_TENSOR_FLOPS / 1e12:.0f} TFLOP/s), peak {peak:.2f} GB allocated; step 1 {metrics[0]['step_time_s']:.3f} s ({card})")
+    log(f"[train] launches {counts} (exactly {TRAIN_STEPS} x {train_step_launches(cfg)}); {len(moved)} text leaves moved, "
+        f"{len(text_before) - len(moved)} bf16 ones reached by a gradient but below a bf16 step of 1.0; the tower unchanged")
+    del trainer, text_before, vision_before, exp_avg
+    return counts
 
 
 def _check_completions(name, comps, n, budgets, d):
@@ -820,19 +1035,25 @@ def main() -> int:
     name, card = phase_device()
     entries = phase_kernels(dev, card)
     phase_tiny_reference(dev)
+    phase_tiny_train(dev)
     cfg, model, proc = load_3b(dev)
     counts = phase_run_batch("slice", dev, card, cfg, model.params, proc)
     check_launches(cfg, counts)
     serve_counts, forwards = phase_serve(dev, card, cfg, model, proc)
     check_serve_launches(cfg, serve_counts, forwards)
+    params = model.params
     del model, proc
+    gc.collect()
+    train_counts = phase_train(dev, card, params)  # trains the same 3B weights in place
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     h7_entries, counts_7b = phase_7b(dev, card)
     entries += h7_entries
     # each kernel's launches on its own path: the 3B run_batch for H1-H3, 3B
-    # serving for H4-H6, the 7B runs for the 7B shapes and H7
-    paths = {"3b_batch": counts, "3b_serve": serve_counts, "7b": counts_7b}
+    # serving for H4-H6, the 3B train steps for the training lines, the 7B
+    # runs for the 7B shapes and H7
+    paths = {"3b_batch": counts, "3b_serve": serve_counts, "train": train_counts, "7b": counts_7b}
     for e in entries:
         e["launches"] = paths[e.pop("path")][e["name"]]
     print(json.dumps({"kernels": entries}), flush=True)

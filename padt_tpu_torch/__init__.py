@@ -1,12 +1,12 @@
 """PaDT on PyTorch + CUDA for one NVIDIA H100: the port of `padt_tpu`.
 
-`padt_tpu` (JAX on TPU) stays the reference; this package mirrors its layout
-(`ops/`, `models/`, `eval/`, `serve/`, `convert/`) and function names, keeps
-its own copies of the reference's framework-neutral host modules (`config`,
-`vrt/` processor and parser, `preprocess/vision_process`,
-`models/vision_geom`, `models/mrope_index`, `utils/mock_tokenizer`,
-`eval/rle`), and replaces its Pallas kernels with hand-written Hopper kernels
-under `csrc/`.
+`padt_tpu` (JAX on TPU) stays the reference; this package mirrors its
+layout (`ops/`, `models/`, `eval/`, `serve/`, `train/`, `convert/`) and
+function names, keeps its own copies of the reference's framework-neutral
+host modules (`config`, `vrt/` processor and parser,
+`preprocess/vision_process`, `models/vision_geom`, `models/mrope_index`,
+`utils/mock_tokenizer`, `eval/rle`, `train/data`, `train/prefetch`), and
+replaces its Pallas kernels with hand-written Hopper kernels under `csrc/`.
 
 Importing this package imports neither jax nor anything of `padt_tpu`.
 """

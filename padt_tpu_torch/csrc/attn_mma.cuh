@@ -25,6 +25,7 @@ constexpr int kRows = 64;     // query rows per CTA
 constexpr int kCols = 64;     // keys per tile
 constexpr int kThreads = 128; // 4 warps
 constexpr int kLdT = kCols + 8;  // row pitch of the transposed V tile
+constexpr float kBigLse = 1e30f;  // LSE of a query row with no visible key
 
 // row pitch of a [64 x HD] tile: +8 elements (16 bytes) shifts consecutive
 // rows by 4 banks, so the 8 rows a fragment load touches hit distinct banks

@@ -18,6 +18,12 @@
 // later work.
 //
 // One CTA per (batch, seq) row; each thread rotates (j, j + half) pairs.
+//
+// sin_sign -1 rotates by the negated angle: with tables whose two halves
+// repeat (every rope table of this model), that is the transpose of the
+// rotation, so the same kernel is the VJP of `rope_pair_packed`
+// (padt_tpu/ops/pallas_attention.py:669-676 runs `_rope_pair_kernel` with
+// -sin).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -29,7 +35,7 @@ __global__ void rope_qk_kernel(const bf16* __restrict__ q, long long q_rs,
                                const bf16* __restrict__ k, long long k_rs,
                                const float* __restrict__ cos, const float* __restrict__ sin,
                                bf16* __restrict__ q_out, bf16* __restrict__ k_out, int hq,
-                               int hk, int hd) {
+                               int hk, int hd, float sin_sign) {
   const long long row = blockIdx.x;
   const int half = hd / 2;
   const float* c = cos + row * hd;
@@ -48,8 +54,8 @@ __global__ void rope_qk_kernel(const bf16* __restrict__ q, long long q_rs,
     }
     const float x1 = __bfloat162float(x[j]);
     const float x2 = __bfloat162float(x[j + half]);
-    o[j] = __float2bfloat16(x1 * c[j] - x2 * s[j]);
-    o[j + half] = __float2bfloat16(x2 * c[j + half] + x1 * s[j + half]);
+    o[j] = __float2bfloat16(x1 * c[j] - x2 * (sin_sign * s[j]));
+    o[j + half] = __float2bfloat16(x2 * c[j + half] + x1 * (sin_sign * s[j + half]));
   }
 }
 
@@ -58,16 +64,17 @@ __global__ void rope_qk_kernel(const bf16* __restrict__ q, long long q_rs,
 // C entry point (loaded with ctypes). rows = B * S; q row r starts at
 // q + r * q_row_stride (elements), likewise k (k may be null when hk == 0);
 // cos/sin are (rows, hd) fp32; q_out (rows, hq*hd) and k_out (rows, hk*hd)
-// are contiguous. Returns cudaGetLastError() after the launch.
+// are contiguous; sin_sign is 1 (rope) or -1 (its VJP). Returns
+// cudaGetLastError() after the launch.
 extern "C" int padt_rope_qk(const void* q, long long q_row_stride, const void* k,
                             long long k_row_stride, const void* cos, const void* sin,
                             void* q_out, void* k_out, int rows, int hq, int hk, int hd,
-                            void* stream) {
+                            float sin_sign, void* stream) {
   using namespace padt;
   if (rows == 0) return 0;
   rope_qk_kernel<<<rows, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), q_row_stride, static_cast<const bf16*>(k), k_row_stride,
       static_cast<const float*>(cos), static_cast<const float*>(sin),
-      static_cast<bf16*>(q_out), static_cast<bf16*>(k_out), hq, hk, hd);
+      static_cast<bf16*>(q_out), static_cast<bf16*>(k_out), hq, hk, hd, sin_sign);
   return (int)cudaGetLastError();
 }

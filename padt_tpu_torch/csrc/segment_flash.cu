@@ -8,7 +8,11 @@
 // Key c is visible to query r iff q_seg[r] == k_seg[c] && k_seg[c] >= 0, and
 // r >= c when causal. Query head h reads kv head h / (H / Hkv). f32 online
 // softmax; a row with no visible key returns 0 (the TPU kernels' l > 0
-// guard).
+// guard). With a non-null `lse` it also writes each row's f32 log-sum-exp
+// m + log(l) into lse (B, H, Sq), and +1e30 for a row with no visible key,
+// so that exp(s - lse) is exactly 0 there in the backward (H8/H9,
+// flash_bwd.cu): `_fwd_kernel`'s return_lse output, without its Mosaic
+// (B*H, 1, S) layout.
 //
 // Bound on the H100: compute. Vision full layers at B=2, S=2304, 16 heads of
 // 80 are ~2 * 2 * S^2 * 80 * 16 * B = 54 GFLOP per layer against ~35 MB of
@@ -29,10 +33,11 @@ template <int HD, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
 segment_flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const int* __restrict__ q_seg,
-                     const int* __restrict__ k_seg, bf16* __restrict__ out, int Sq, int Sk,
-                     int H, int Hkv, long long q_sb, long long q_ss, long long q_sh,
-                     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-                     long long v_ss, long long v_sh, float scale) {
+                     const int* __restrict__ k_seg, bf16* __restrict__ out,
+                     float* __restrict__ lse, int Sq, int Sk, int H, int Hkv,
+                     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+                     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+                     long long v_sh, float scale) {
   constexpr int LD = Pitch<HD>::value;
   __shared__ __align__(16) bf16 sK[kRows * LD];  // also stages the Q tile
   __shared__ __align__(16) bf16 sVt[HD * kLdT];
@@ -90,6 +95,17 @@ segment_flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
   }
 
+  if (lse != nullptr) {
+    float* lb = lse + ((long long)b * H + h) * Sq;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float x = l[i];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      if ((lane & 3) == 0 && qpos[i] < Sq) lb[qpos[i]] = x > 0.f ? m[i] + logf(x) : kBigLse;
+    }
+  }
+
   bf16* ob = out + ((long long)b * Sq * H + h) * HD;
   auto row_ptr = [&](int r) -> bf16* {
     const int qi = q0 + r;
@@ -100,26 +116,27 @@ segment_flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int HD>
 static void launch(bool causal, dim3 grid, cudaStream_t st, const bf16* q, const bf16* k,
-                   const bf16* v, const int* qs, const int* ks, bf16* o, int Sq, int Sk, int H,
-                   int Hkv, const long long* st9, float scale) {
+                   const bf16* v, const int* qs, const int* ks, bf16* o, float* lse, int Sq,
+                   int Sk, int H, int Hkv, const long long* st9, float scale) {
   if (causal)
     segment_flash_kernel<HD, true><<<grid, kThreads, 0, st>>>(
-        q, k, v, qs, ks, o, Sq, Sk, H, Hkv, st9[0], st9[1], st9[2], st9[3], st9[4], st9[5],
+        q, k, v, qs, ks, o, lse, Sq, Sk, H, Hkv, st9[0], st9[1], st9[2], st9[3], st9[4], st9[5],
         st9[6], st9[7], st9[8], scale);
   else
     segment_flash_kernel<HD, false><<<grid, kThreads, 0, st>>>(
-        q, k, v, qs, ks, o, Sq, Sk, H, Hkv, st9[0], st9[1], st9[2], st9[3], st9[4], st9[5],
+        q, k, v, qs, ks, o, lse, Sq, Sk, H, Hkv, st9[0], st9[1], st9[2], st9[3], st9[4], st9[5],
         st9[6], st9[7], st9[8], scale);
 }
 
 }  // namespace padt
 
 // C entry point (loaded with ctypes). strides: q_sb, q_ss, q_sh, k_sb, k_ss,
-// k_sh, v_sb, v_ss, v_sh in elements. Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for a head dim it was not built for.
+// k_sh, v_sb, v_ss, v_sh in elements; lse (B, H, Sq) fp32 or null. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a head
+// dim it was not built for.
 extern "C" int padt_segment_flash_fwd(const void* q, const void* k, const void* v,
-                                      const void* q_seg, const void* k_seg, void* out, int B,
-                                      int Sq, int Sk, int H, int Hkv, int hd,
+                                      const void* q_seg, const void* k_seg, void* out,
+                                      void* lse, int B, int Sq, int Sk, int H, int Hkv, int hd,
                                       long long q_sb, long long q_ss, long long q_sh,
                                       long long k_sb, long long k_ss, long long k_sh,
                                       long long v_sb, long long v_ss, long long v_sh,
@@ -134,12 +151,13 @@ extern "C" int padt_segment_flash_fwd(const void* q, const void* k, const void* 
   auto qs = static_cast<const int*>(q_seg);
   auto ks = static_cast<const int*>(k_seg);
   auto oo = static_cast<bf16*>(out);
+  auto ls = static_cast<float*>(lse);
   switch (hd) {
-    case 16: launch<16>(causal, grid, st, qq, kk, vv, qs, ks, oo, Sq, Sk, H, Hkv, st9, scale); break;
-    case 32: launch<32>(causal, grid, st, qq, kk, vv, qs, ks, oo, Sq, Sk, H, Hkv, st9, scale); break;
-    case 64: launch<64>(causal, grid, st, qq, kk, vv, qs, ks, oo, Sq, Sk, H, Hkv, st9, scale); break;
-    case 80: launch<80>(causal, grid, st, qq, kk, vv, qs, ks, oo, Sq, Sk, H, Hkv, st9, scale); break;
-    case 128: launch<128>(causal, grid, st, qq, kk, vv, qs, ks, oo, Sq, Sk, H, Hkv, st9, scale); break;
+    case 16: launch<16>(causal, grid, st, qq, kk, vv, qs, ks, oo, ls, Sq, Sk, H, Hkv, st9, scale); break;
+    case 32: launch<32>(causal, grid, st, qq, kk, vv, qs, ks, oo, ls, Sq, Sk, H, Hkv, st9, scale); break;
+    case 64: launch<64>(causal, grid, st, qq, kk, vv, qs, ks, oo, ls, Sq, Sk, H, Hkv, st9, scale); break;
+    case 80: launch<80>(causal, grid, st, qq, kk, vv, qs, ks, oo, ls, Sq, Sk, H, Hkv, st9, scale); break;
+    case 128: launch<128>(causal, grid, st, qq, kk, vv, qs, ks, oo, ls, Sq, Sk, H, Hkv, st9, scale); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -5,7 +5,8 @@ Same padded layout as the JAX version: (N objects, 3 + K_max) query grids,
 per-object memory gathered from its sample, boolean validity masks, and a
 static (N, 4*H_max, 4*W_max) mask canvas. Attention is dense masked
 attention in plain PyTorch, as JAX leaves it to XLA; the rotary side of each
-cross-attention goes through the rope kernel on the card.
+cross-attention goes through the rope kernel on the card (under autograd
+through `rope_pair_packed`, whose backward is the same kernel).
 """
 
 from __future__ import annotations
@@ -16,8 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import DecoderConfig
-from ..ops.attention import masked_cross_attention
-from ..ops.cuda_attention import rope_qk
+from ..ops.attention import masked_cross_attention, rope_pair_packed
 from ..ops.norms import rms_norm
 from .params import normal, ones, zeros
 
@@ -95,7 +95,7 @@ def input_projection(params, cfg: DecoderConfig, x):
 def _rotary(x, pe, h: int):
     """Rotate the (N, L, H*hd) projection by the per-token (cos, sin)."""
     cos, sin = pe
-    out, _ = rope_qk(x, None, cos.float().contiguous(), sin.float().contiguous(), h, 0)
+    out, _ = rope_pair_packed(x, None, cos.float().contiguous(), sin.float().contiguous(), h, 0)
     return out
 
 

@@ -3,10 +3,13 @@
 weights in bf16 or int8 (`quantize_params`), a bf16 or an int8 KV cache.
 
 `prefill` runs the causal forward over the prompt and seeds the cache;
-`decode_step` runs one token over it. Both return post-final-norm hidden
-states. q/k rope runs through the H1 kernel and prefill attention through
-H2 on the card. bf16 decode attention is plain PyTorch, as JAX leaves it to
-XLA; int8 decode attention is H4 and its row store H6. Every product with
+`decode_step` runs one token over it; `text_forward` is the training
+forward (optionally checkpointed per layer). All return post-final-norm
+hidden states. q/k rope runs through the H1 kernel and prefill attention
+through H2 on the card; under autograd through their Functions
+(`ops.attention.rope_pair_packed`, `flash_attention`), whose backwards are
+H1 with the sin negated and H8/H9. bf16 decode attention is plain PyTorch,
+as JAX leaves it to XLA; int8 decode attention is H4 and its row store H6. Every product with
 an int8 weight (`*_w_q` / `*_w_s`) goes through H7 (`ops.quant.linear`).
 """
 
@@ -17,10 +20,10 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import TextConfig
-from ..ops.attention import causal_attention, decode_attention
-from ..ops.cuda_attention import rope_qk
+from ..ops.attention import causal_attention, decode_attention, rope_pair_packed
 from ..ops.kv_cache import decode_attention_int8, empty_scale, quantize_kv, store_kv_rows_all_layers
 from ..ops.norms import rms_norm
 from ..ops.quant import linear as qlinear
@@ -129,7 +132,7 @@ def _qkv_rot(xn, lp, cfg: TextConfig, cos, sin):
         qp = qlinear(lp, "q_w", xn) + lp["q_b"]
         kp = qlinear(lp, "k_w", xn) + lp["k_b"]
         v = (qlinear(lp, "v_w", xn) + lp["v_b"]).reshape(b, l, hkv, hd)
-    q, k = rope_qk(qp, kp, cos, sin, h, hkv)
+    q, k = rope_pair_packed(qp, kp, cos, sin, h, hkv)
     return q.reshape(b, l, h, hd), k.reshape(b, l, hkv, hd), v
 
 
@@ -139,6 +142,45 @@ def _mlp(x, lp):
         ff = gu.shape[-1] // 2
         return qlinear(lp, "down_w", F.silu(gu[..., :ff]) * gu[..., ff:])
     return qlinear(lp, "down_w", F.silu(qlinear(lp, "gate_w", x)) * qlinear(lp, "up_w", x))
+
+
+def _unbound_layers(params):
+    """The stacked (layers, ...) leaves as one dict per layer. Each leaf is
+    unbound once, so under autograd its gradient is one stack of the
+    per-layer gradients (indexing v[li] instead would build a zero tensor of
+    the whole stack per layer in the backward)."""
+    names = list(params["layers"])
+    return [dict(zip(names, vals)) for vals in zip(*(torch.unbind(params["layers"][n]) for n in names))]
+
+
+def text_forward(
+    params,
+    cfg: TextConfig,
+    inputs_embeds: torch.Tensor,  # (B, L, D)
+    position_ids: torch.Tensor,  # (3, B, L)
+    valid: torch.Tensor,  # (B, L) bool
+    remat: bool = False,
+):
+    """Full causal forward. Returns (hidden post-final-norm (B, L, D),
+    (k_all, v_all) each (layers, B, L, Hkv, hd)). remat: each layer body
+    runs under `torch.utils.checkpoint` (non-reentrant), so the backward
+    recomputes it from the layer's input instead of keeping its
+    activations."""
+    b, l, _ = inputs_embeds.shape
+    cos, sin = mrope_cos_sin(position_ids, cfg.head_dim, cfg.mrope_section, cfg.rope_theta)
+    eps = cfg.rms_norm_eps
+
+    def body(x, lp):
+        q, k, v = _qkv_rot(rms_norm(x, lp["input_ln_w"], eps), lp, cfg, cos, sin)
+        x = x + qlinear(lp, "o_w", causal_attention(q, k, v, valid).reshape(b, l, -1))
+        return x + _mlp(rms_norm(x, lp["post_ln_w"], eps), lp), k, v
+
+    x, ks, vs = inputs_embeds, [], []
+    for lp in _unbound_layers(params):
+        x, k, v = checkpoint(body, x, lp, use_reentrant=False) if remat else body(x, lp)
+        ks.append(k)
+        vs.append(v)
+    return rms_norm(x, params["final_ln_w"], eps), (torch.stack(ks), torch.stack(vs))
 
 
 def prefill(

@@ -5,11 +5,14 @@ vocabulary, generation, and the `vl_decode` glue to the perception decoder.
 Same conventions as the JAX package: per-sample prototype tables, VRT token
 id == vocab_size + local merged-patch id, hidden states captured per
 generated token. `generate` is an eager Python loop that checks once per
-step whether every row has finished.
+step whether every row has finished. `forward_train` is the teacher-forced
+training forward; a frozen tower runs under `torch.no_grad()` (JAX's
+stop_gradient) or is skipped for cached `vis_*` features.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
@@ -205,6 +208,23 @@ def extended_embed(params, cfg: PaDTConfig, input_ids, proto, merged=None):
     return out
 
 
+class _F32Logits(torch.autograd.Function):
+    """bf16 h (N, D) @ w (V, D)^T with fp32 accumulation and fp32 output on
+    the card. The backward runs the two bf16 products (fp32 accumulation,
+    bf16 results) on the cotangent rounded to bf16: dh = g @ w, dw = g^T @ h."""
+
+    @staticmethod
+    def forward(ctx, h2, w):
+        ctx.save_for_backward(h2, w)
+        return torch.mm(h2, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        h2, w = ctx.saved_tensors
+        g = g.to(h2.dtype)
+        return g @ w, g.t() @ h2
+
+
 def _f32_logits(hidden: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """hidden (B, L, D) @ w(V, D)^T with f32 output. A bf16 product keeps
     f32 accumulation and f32 output (JAX's preferred_element_type=f32), so
@@ -214,7 +234,7 @@ def _f32_logits(hidden: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if hidden.dtype == torch.float32:
         out = h2 @ w.t()
     elif hidden.is_cuda:
-        out = torch.mm(h2, w.t(), out_dtype=torch.float32)
+        out = _F32Logits.apply(h2, w)
     else:
         out = h2.float() @ w.float().t()
     return out.reshape(b, l, -1)
@@ -258,6 +278,51 @@ _VISION_BATCH_KEYS = (
     "seg_win", "seg_full", "hpos", "wpos", "num_merged", "num_patches", "grid_thw", "pack_index",
 )
 
+# batch keys read only by the tower: a batch with cached `vis_*` features
+# drops them
+_VISION_ONLY_KEYS = (
+    "pixel_patches", "pixel_patches_u8", "window_index", "inv_window_index",
+    "seg_win", "seg_full", "hpos", "wpos", "pack_index",
+)
+_VISION_CACHE_KEYS = ("vis_merged", "vis_high_res", "vis_pe_cos", "vis_pe_sin")
+# int8 feature cache: merged / high_res as per-row int8 + fp32 row scales,
+# the rope tables exact
+_VISION_CACHE_KEYS_INT8 = (
+    "vis_merged_q", "vis_merged_s", "vis_high_res_q", "vis_high_res_s", "vis_pe_cos", "vis_pe_sin",
+)
+
+
+def vision_cache_keys(quant: str = "none"):
+    return _VISION_CACHE_KEYS_INT8 if quant == "int8" else _VISION_CACHE_KEYS
+
+
+def _quant_rows(x: torch.Tensor):
+    """Per-row (last axis) symmetric int8: q in [-127, 127] (round half to
+    even), fp32 scales (..., 1) of at least 1e-12."""
+    xf = x.float()
+    s = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-12)
+    return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8), s
+
+
+def _dequant_rows(q: torch.Tensor, s: torch.Tensor, dtype) -> torch.Tensor:
+    return (q.float() * s).to(dtype)
+
+
+def vision_features(params, cfg: PaDTConfig, batch, quant: str = "none"):
+    """Run the frozen tower once and return the `vis_*` batch keys that make
+    `run_vision` / `forward_train` skip it: exactly loss- and
+    gradient-equivalent under freeze_vision, since the graph is cut at
+    these tensors anyway. quant "int8": merged / high_res as per-row int8 +
+    fp32 scales (a bounded forward perturbation), the rope tables exact."""
+    with torch.no_grad():
+        art = run_vision(params, cfg, batch, freeze=True)
+    if quant == "int8":
+        mq, ms = _quant_rows(art.merged)
+        hq, hs = _quant_rows(art.high_res)
+        return {"vis_merged_q": mq, "vis_merged_s": ms, "vis_high_res_q": hq, "vis_high_res_s": hs,
+                "vis_pe_cos": art.pe_cos, "vis_pe_sin": art.pe_sin}
+    return {"vis_merged": art.merged, "vis_high_res": art.high_res, "vis_pe_cos": art.pe_cos, "vis_pe_sin": art.pe_sin}
+
 
 def _pixel_u8_lut(dtype=torch.float32, device=None) -> torch.Tensor:
     """(3, 256) per-channel table lut[c, v] = (f32(v)/255 - mean[c]) / std[c],
@@ -285,15 +350,18 @@ def _expand_pixels_u8(cfg: PaDTConfig, u8, num_patches, dtype=torch.bfloat16):
     return torch.where(valid, x, torch.zeros((), dtype=dtype, device=u8.device))
 
 
-def _run_vision_once(params, cfg: PaDTConfig, batch) -> VisionArtifacts:
+def _run_vision_once(params, cfg: PaDTConfig, batch, freeze: bool = False) -> VisionArtifacts:
     pix = batch.get("pixel_patches")
     if pix is None:
         pix = _expand_pixels_u8(cfg, batch["pixel_patches_u8"], batch["num_patches"])
-    merged, high_res, (cos, sin) = vision_forward(
-        params["vision"], cfg.vision, pix,
-        batch["window_index"], batch["inv_window_index"], batch["seg_win"], batch["seg_full"],
-        batch["hpos"], batch["wpos"], pack_index=batch.get("pack_index"),
-    )
+    # freeze (`--freeze_vision_modules`): the tower runs without a graph, the
+    # port's stop_gradient; the prototype projection below stays trainable
+    with torch.no_grad() if freeze else contextlib.nullcontext():
+        merged, high_res, (cos, sin) = vision_forward(
+            params["vision"], cfg.vision, pix,
+            batch["window_index"], batch["inv_window_index"], batch["seg_win"], batch["seg_full"],
+            batch["hpos"], batch["wpos"], pack_index=batch.get("pack_index"),
+        )
     return VisionArtifacts(
         merged=merged, proto=image_prototypes(params, cfg, merged), high_res=high_res,
         pe_cos=cos, pe_sin=sin, num_merged=batch["num_merged"],
@@ -301,19 +369,64 @@ def _run_vision_once(params, cfg: PaDTConfig, batch) -> VisionArtifacts:
     )
 
 
-def run_vision(params, cfg: PaDTConfig, batch: Dict[str, torch.Tensor]) -> VisionArtifacts:
+def run_vision(params, cfg: PaDTConfig, batch: Dict[str, torch.Tensor], freeze: bool = False) -> VisionArtifacts:
     """Vision tower + prototypes; with `cfg.vision_chunk_size` set (and
-    dividing B), the tower runs over batch chunks to bound transients."""
+    dividing B), the tower runs over batch chunks to bound transients. A
+    batch with cached `vis_*` features (`vision_features`) skips the tower
+    and recomputes only the prototypes; that needs freeze=True."""
+    if "vis_merged" in batch or "vis_merged_q" in batch:
+        if not freeze:
+            raise ValueError(
+                "cached vision features (vis_* batch keys) are exact only under freeze_vision=True: the "
+                "tower graph is skipped entirely, so an unfrozen tower's gradients would be silently zero"
+            )
+        if "vis_merged_q" in batch:
+            dt = batch["vis_pe_cos"].dtype
+            merged = _dequant_rows(batch["vis_merged_q"], batch["vis_merged_s"], dt)
+            high_res = _dequant_rows(batch["vis_high_res_q"], batch["vis_high_res_s"], dt)
+        else:
+            merged, high_res = batch["vis_merged"], batch["vis_high_res"]
+        return VisionArtifacts(
+            merged=merged, proto=image_prototypes(params, cfg, merged), high_res=high_res,
+            pe_cos=batch["vis_pe_cos"], pe_sin=batch["vis_pe_sin"], num_merged=batch["num_merged"],
+            num_patches=batch["num_patches"], grid_thw=batch["grid_thw"],
+        )
     pix_key = "pixel_patches" if "pixel_patches" in batch else "pixel_patches_u8"
     b = batch[pix_key].shape[0]
     cs = cfg.vision_chunk_size
     if cs and b > cs and b % cs == 0:
         parts = [
-            _run_vision_once(params, cfg, {k: batch[k][i : i + cs] for k in _VISION_BATCH_KEYS if k in batch})
+            _run_vision_once(params, cfg, {k: batch[k][i : i + cs] for k in _VISION_BATCH_KEYS if k in batch}, freeze)
             for i in range(0, b, cs)
         ]
         return VisionArtifacts(*(torch.cat(xs) for xs in zip(*parts)))
-    return _run_vision_once(params, cfg, batch)
+    return _run_vision_once(params, cfg, batch, freeze)
+
+
+def forward_train(
+    params,
+    cfg: PaDTConfig,
+    batch: Dict[str, torch.Tensor],
+    logits_slice: Optional[Tuple[int, int]] = None,
+    remat: bool = False,
+    freeze_vision: bool = False,
+    split_logits: bool = False,
+):
+    """Teacher-forced forward. logits_slice=(start, length): logits only for
+    hidden positions [start, start + length) (the completion). Returns
+    (logits: (B, Lc, V + M) fp32, or the ((B, Lc, V), (B, Lc, M)) pair with
+    split_logits; hidden (B, L, D); the vision artifacts)."""
+    art = run_vision(params, cfg, batch, freeze=freeze_vision)
+    embeds = extended_embed(params, cfg, batch["input_ids"], art.proto, art.merged)
+    hidden, _ = language.text_forward(
+        params["text"], cfg.text, embeds, batch["position_ids"], batch["attention_mask"].bool(), remat=remat,
+    )
+    h = hidden
+    if logits_slice is not None:
+        start, length = logits_slice
+        h = hidden[:, start : start + length]
+    fn = extended_logits_pair if split_logits else extended_logits
+    return fn(params, cfg, h, art.proto, art.num_merged), hidden, art
 
 
 # ---------------------------------------------------------------------------
@@ -420,7 +533,6 @@ def generate(
 # vl_decode glue
 # ---------------------------------------------------------------------------
 
-@torch.no_grad()
 def vl_decode(
     params,
     cfg: PaDTConfig,
@@ -432,7 +544,9 @@ def vl_decode(
     canvas_hw: Optional[Tuple[int, int]] = None,
     compute_mask: bool = True,
 ):
-    """Per-object VRT hidden groups -> perception decoder outputs."""
+    """Per-object VRT hidden groups -> perception decoder outputs
+    (differentiable; `PaDTModel.vl_decode` and the harness run it without
+    grad)."""
     if canvas_hw is None:
         side = int(cfg.max_image_patches**0.5) + 1
         canvas_hw = (side, side)

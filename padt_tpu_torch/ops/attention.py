@@ -8,6 +8,14 @@ The vision and prefill attention go through the Hopper kernels of
 `decode_attention` and `masked_cross_attention` are plain PyTorch, as the
 JAX package leaves them to XLA.
 
+Training: `flash_attention` is the autograd Function of JAX's
+`flash_attention` custom VJP (`pallas_attention.py:227-265,453-538`): H2
+with its LSE output forward, H8/H9 backward. `rope_pair_packed` is that of
+`rope_pair_packed` (`:649-679`): H1 forward, H1 with the sin negated
+backward. `causal_attention` and `rope_pair_packed` take their Function
+only when grad mode is on and an input requires grad, so inference
+launches exactly what it did before.
+
 Rows with no valid key: the kernels and their twins return 0, as the TPU
 kernels do. The JAX XLA branches return a finite uniform average there
 (NEG_INF fill); downstream masks drop those rows either way.
@@ -20,6 +28,7 @@ from typing import Optional
 import torch
 
 from .cuda_attention import WINDOW, rope_qk, segment_flash_fwd, window_slot_attn
+from .cuda_flash_bwd import flash_bwd_dkv, flash_bwd_dq
 
 NEG_INF = -1e30
 
@@ -70,11 +79,80 @@ def window_attention_qkv(
     return out.reshape(b, s, -1)
 
 
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Segment flash attention with the flash backward: the forward saves q,
+    k, v, the segment ids, the output and the LSE; the backward forms delta =
+    rowsum(dO * O) in fp32 (plain PyTorch, as JAX leaves it to XLA) and runs
+    H8 (dq) and H9 (dk, dv)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_seg, k_seg, causal: bool, scale: float):
+        out, lse = segment_flash_fwd(q, k, v, q_seg, k_seg, causal, scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, q_seg, k_seg, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, q_seg, k_seg, out, lse = ctx.saved_tensors
+        g = g.to(q.dtype).contiguous()
+        delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()  # (B, H, Sq)
+        args = (q, k, v, g, q_seg, k_seg, lse, delta, ctx.causal, ctx.scale)
+        dk, dv = flash_bwd_dkv(*args)
+        return flash_bwd_dq(*args), dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, q_seg, k_seg, causal: bool = False, scale: Optional[float] = None):
+    """Differentiable segment attention; q (B, Sq, H, D), k/v (B, Sk, Hkv,
+    D), segment ids (B, S) int32 (-1 = pad). Rows with no visible key give 0."""
+    scale = (1.0 / (q.shape[-1] ** 0.5)) if scale is None else scale
+    return _FlashAttention.apply(q, k, v, q_seg, k_seg, causal, scale)
+
+
 def causal_attention(q, k, v, valid):
     """Causal GQA self-attention for the text prefill; `valid` (B, L) bool
-    marks the non-pad (left-padded) positions."""
+    marks the non-pad (left-padded) positions. Differentiable through
+    `flash_attention` when an input requires grad."""
     seg = torch.where(valid, 0, -1).to(torch.int32)
-    return segment_flash_fwd(q, k, v, seg, seg, True, 1.0 / (q.shape[-1] ** 0.5))
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    if _needs_grad(q, k, v):
+        return flash_attention(q, k, v, seg, seg, True, scale)
+    return segment_flash_fwd(q, k, v, seg, seg, True, scale)
+
+
+class _RopePairPacked(torch.autograd.Function):
+    """H1 rope on q and (optionally) k; the backward is H1 on the cotangents
+    with the sin negated (the rotation's transpose, since the tables' halves
+    repeat); cos/sin get no gradient (positions are integers)."""
+
+    @staticmethod
+    def forward(ctx, q, k, cos, sin, num_q_heads: int, num_k_heads: int):
+        ctx.save_for_backward(cos, sin)
+        ctx.heads = (num_q_heads, num_k_heads)
+        qr, kr = rope_qk(q, k, cos, sin, num_q_heads, num_k_heads)
+        return qr if kr is None else (qr, kr)
+
+    @staticmethod
+    def backward(ctx, gq, gk=None):
+        cos, sin = ctx.saved_tensors
+        hq, hk = ctx.heads
+        dq, dk = rope_qk(gq.contiguous(), None if hk == 0 else gk.contiguous(), cos, sin, hq, hk, sin_sign=-1.0)
+        return dq, dk, None, None, None, None
+
+
+def rope_pair_packed(q, k, cos, sin, num_q_heads: int, num_k_heads: int):
+    """`rope_qk` (q (B, S, Hq*hd), k (B, S, Hk*hd) or None; fp32 cos/sin
+    (B, S, hd)) -> (q_rot, k_rot or None), differentiable through H1's VJP
+    when an input requires grad."""
+    if not _needs_grad(q, k):
+        return rope_qk(q, k, cos, sin, num_q_heads, num_k_heads)
+    if k is None:
+        return _RopePairPacked.apply(q, None, cos, sin, num_q_heads, 0), None
+    return _RopePairPacked.apply(q, k, cos, sin, num_q_heads, num_k_heads)
 
 
 def decode_attention(q, k_cache, v_cache, valid):

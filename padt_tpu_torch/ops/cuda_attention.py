@@ -12,6 +12,14 @@ It checks device, dtype, shape and strides, allocates the output with
 `torch.empty`, launches on the current stream, raises on a CUDA error code,
 and adds one to `launch_counts[name]` after the launch.
 
+A kernel writes its output through raw pointers, which autograd cannot see:
+on CUDA tensors that require grad (with grad mode on) each wrapper raises
+rather than cut the graph. Training reaches H1 and H2 through the autograd
+Functions of `ops.attention` (`rope_pair_packed`, `flash_attention`), whose
+forwards run with grad mode off and whose backwards are kernels too (H1
+with the sin negated; H8/H9 in `cuda_flash_bwd`). H3 has no backward yet:
+the vision tower trains on the card only frozen.
+
 The kernels take bf16 activations (fp32 rope tables, int32 segment ids).
 The twins compute in fp32 and return the input's dtype. A query row with no
 valid key returns 0 in both.
@@ -28,6 +36,7 @@ from .rope import apply_rotary
 
 WINDOW = 64  # tokens per vision window slot (vision_geom.py window_slots)
 HEAD_DIMS = (16, 32, 64, 80, 128)  # head dims the attention kernels are built for
+BIG_LSE = 1e30  # the LSE of a query row with no visible key: exp(s - lse) is 0
 
 launch_counts = {"rope_qk": 0, "segment_flash_fwd": 0, "window_slot_attn": 0}
 
@@ -62,6 +71,15 @@ def _same_device(name: str, dev: torch.device, *ts) -> None:
             raise ValueError(f"{name}: tensors on different devices ({t.device} vs {dev})")
 
 
+def _no_graph_cut(name: str, *ts) -> None:
+    """Raise for CUDA inputs that autograd would have to differentiate."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{name}: inputs require grad, and the kernel's output would cut the autograd graph; "
+            "call it through its autograd Function in padt_tpu_torch.ops.attention"
+        )
+
+
 def _vec_ok(t: torch.Tensor) -> bool:
     """16-byte loads: aligned base, unit last stride, other strides multiples of 8."""
     return t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:-1])
@@ -71,10 +89,10 @@ def _vec_ok(t: torch.Tensor) -> bool:
 # H1 rope_qk
 # ---------------------------------------------------------------------------
 
-def rope_qk_plain(q, k, cos, sin, num_q_heads: int, num_k_heads: int):
+def rope_qk_plain(q, k, cos, sin, num_q_heads: int, num_k_heads: int, sin_sign: float = 1.0):
     b, s, _ = q.shape
     hd = cos.shape[-1]
-    c, sn = cos[:, :, None, :], sin[:, :, None, :]
+    c, sn = cos[:, :, None, :], sin[:, :, None, :] * sin_sign
     qr = apply_rotary(q.reshape(b, s, num_q_heads, hd), c, sn).reshape(b, s, num_q_heads * hd)
     if k is None:
         return qr, None
@@ -99,15 +117,19 @@ def rope_qk(
     sin: torch.Tensor,
     num_q_heads: int,
     num_k_heads: int,
+    sin_sign: float = 1.0,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """fp32 rotate-half rope on the q heads and k heads -> contiguous
-    (q_rot (B, S, Hq*hd), k_rot (B, S, Hk*hd) or None)."""
+    (q_rot (B, S, Hq*hd), k_rot (B, S, Hk*hd) or None). sin_sign -1 rotates
+    by the negated angle: the rope's VJP."""
     name = "rope_qk"
     if _on_cpu(q, name):
-        return rope_qk_plain(q, k, cos, sin, num_q_heads, num_k_heads)
+        return rope_qk_plain(q, k, cos, sin, num_q_heads, num_k_heads, sin_sign)
     b, s, _ = q.shape
     hd = cos.shape[-1]
     _same_device(name, q.device, k, cos, sin)
+    _no_graph_cut(name, q, k)
+    _require(name, sin_sign in (1.0, -1.0), f"sin_sign {sin_sign} is not +-1")
     _require(name, q.dtype == torch.bfloat16 and (k is None or k.dtype == torch.bfloat16), "q/k must be bf16")
     _require(name, cos.dtype == torch.float32 and sin.dtype == torch.float32, "cos/sin must be fp32")
     _require(name, cos.shape == (b, s, hd) and sin.shape == (b, s, hd), f"cos/sin shape {tuple(cos.shape)}")
@@ -130,7 +152,7 @@ def rope_qk(
         q.data_ptr(), q_rs, None if k is None else k.data_ptr(), k_rs,
         cos.data_ptr(), sin.data_ptr(), q_out.data_ptr(),
         None if k_out is None else k_out.data_ptr(),
-        b * s, num_q_heads, num_k_heads, hd, _stream(q),
+        b * s, num_q_heads, num_k_heads, hd, float(sin_sign), _stream(q),
     )
     check(lib, name, rc)
     launch_counts[name] += 1
@@ -153,19 +175,32 @@ def _masked_softmax_pv(scores: torch.Tensor, mask: torch.Tensor, v: torch.Tensor
     return torch.where(l > 0, out, torch.zeros_like(out))
 
 
-def segment_flash_plain(q, k, v, q_seg, k_seg, causal: bool, scale: float):
-    b, sq, h, hd = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
-    rep = h // hkv
-    qf = q.float().permute(0, 2, 1, 3)
-    kf = k.float().permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
-    vf = v.float().permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
-    scores = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+def visible(q_seg, k_seg, causal: bool) -> torch.Tensor:
+    """(B, 1, Sq, Sk) bool: key c visible to query r (segments equal,
+    k_seg >= 0, and r >= c when causal)."""
     mask = (q_seg[:, None, :, None] == k_seg[:, None, None, :]) & (k_seg[:, None, None, :] >= 0)
     if causal:
-        mask = mask & torch.ones((sq, sk), dtype=torch.bool, device=q.device).tril()
-    out = _masked_softmax_pv(scores, mask, vf)
-    return out.permute(0, 2, 1, 3).to(q.dtype)
+        sq, sk = q_seg.shape[1], k_seg.shape[1]
+        mask = mask & torch.ones((sq, sk), dtype=torch.bool, device=q_seg.device).tril()
+    return mask
+
+
+def heads_first(t: torch.Tensor, rep: int = 1) -> torch.Tensor:
+    """(B, S, H, hd) -> fp32 (B, H * rep, S, hd), each head repeated `rep`
+    times (the GQA map h // rep)."""
+    return t.float().permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
+
+
+def segment_flash_plain(q, k, v, q_seg, k_seg, causal: bool, scale: float, return_lse: bool = False):
+    rep = q.shape[2] // k.shape[2]
+    qf, kf, vf = heads_first(q), heads_first(k, rep), heads_first(v, rep)
+    scores = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    mask = visible(q_seg, k_seg, causal)
+    out = _masked_softmax_pv(scores, mask, vf).permute(0, 2, 1, 3).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(scores.masked_fill(~mask, float("-inf")), dim=-1)
+    return out, torch.where(torch.isfinite(lse), lse, torch.full_like(lse, BIG_LSE))
 
 
 def segment_flash_fwd(
@@ -176,16 +211,20 @@ def segment_flash_fwd(
     k_seg: torch.Tensor,  # (B, Sk) int32
     causal: bool,
     scale: float,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Segment-id attention: key c visible to query r iff the segments match
     and k_seg >= 0 (and r >= c when causal); GQA head map h // (H/Hkv).
-    Returns contiguous (B, Sq, H, hd)."""
+    Returns contiguous (B, Sq, H, hd), and with return_lse also each row's
+    fp32 log-sum-exp (B, H, Sq) of the scaled scores, BIG_LSE on a row with
+    no visible key."""
     name = "segment_flash_fwd"
     if _on_cpu(q, name):
-        return segment_flash_plain(q, k, v, q_seg, k_seg, causal, scale)
+        return segment_flash_plain(q, k, v, q_seg, k_seg, causal, scale, return_lse)
     b, sq, h, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     _same_device(name, q.device, k, v, q_seg, k_seg)
+    _no_graph_cut(name, q, k, v)
     _require(name, all(t.dtype == torch.bfloat16 for t in (q, k, v)), "q/k/v must be bf16")
     _require(name, hd in HEAD_DIMS, f"head dim {hd} not in {HEAD_DIMS}")
     _require(name, k.shape == (b, sk, hkv, hd) and v.shape == k.shape, f"k/v shapes {tuple(k.shape)} {tuple(v.shape)}")
@@ -195,10 +234,11 @@ def segment_flash_fwd(
         _require(name, seg.dtype == torch.int32 and seg.shape == (b, n) and seg.is_contiguous(), "segment ids must be contiguous int32 (B, S)")
     _require(name, not causal or sq == sk, "causal attention needs Sq == Sk")
     out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_lse else None
     lib = load_library()
     rc = lib.padt_segment_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg.data_ptr(), k_seg.data_ptr(), out.data_ptr(),
-        b, sq, sk, h, hkv, hd,
+        None if lse is None else lse.data_ptr(), b, sq, sk, h, hkv, hd,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
@@ -206,7 +246,7 @@ def segment_flash_fwd(
     )
     check(lib, name, rc)
     launch_counts[name] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 # ---------------------------------------------------------------------------
@@ -239,6 +279,7 @@ def window_slot_attn(
         return window_slot_plain(q, k, v, seg, scale)
     b, s, h, hd = q.shape
     _same_device(name, q.device, k, v, seg)
+    _no_graph_cut(name, q, k, v)
     _require(name, all(t.dtype == torch.bfloat16 for t in (q, k, v)), "q/k/v must be bf16")
     _require(name, hd in HEAD_DIMS, f"head dim {hd} not in {HEAD_DIMS}")
     _require(name, s % WINDOW == 0, f"S={s} is not a multiple of {WINDOW}")

@@ -87,15 +87,16 @@ def test_padt_model_holds_the_tree():
 
 
 def test_import_leaves_jax_out():
-    """Every module of the port, and chip_smoke as a module (main not run),
-    imports neither jax nor anything of padt_tpu."""
+    """Every module of the port (its training modules included), and
+    chip_smoke as a module (main not run), imports none of jax, optax,
+    orbax or padt_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import padt_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(padt_tpu_torch.__path__, 'padt_tpu_torch.')]\n"
         "for name in names + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'padt_tpu' or m.startswith('padt_tpu.'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'orbax', 'padt_tpu'))\n"
         "print(len(names), bad)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -120,7 +121,7 @@ def test_package_uses_no_jax_and_no_library_attention():
     """Neither the package nor chip_smoke.py uses JAX or compiled or packaged
     kernels; the package calls no library attention or int8 GEMM either
     (chip_smoke.py times those beside the kernels as yardsticks)."""
-    banned = ("import jax", "from jax", "torch.compile", "flash_attn", "xformers")
+    banned = ("import jax", "from jax", "import optax", "from optax", "import orbax", "from orbax", "torch.compile", "flash_attn", "xformers")
     library = ("scaled_dot_product_attention", "_weight_int8pack_mm", "_int_mm", "cublas")
     for path in list((ROOT / "padt_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]:
         text = path.read_text()

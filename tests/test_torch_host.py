@@ -142,3 +142,112 @@ def test_rle_matches():
         assert TR.mask_iou(a, b, crowd) == pytest.approx(JR.mask_iou(a, b, crowd), abs=0)
     assert TR.merge([a, b]) == JR.merge([a, b]) and TR.merge([a, b], intersect=True) == JR.merge([a, b], intersect=True)
     assert TR.string_to_counts(a["counts"]) == JR.string_to_counts(a["counts"])
+
+
+# ---------------------------------------------------------------------------
+# training host modules: train/data.py and train/prefetch.py
+# ---------------------------------------------------------------------------
+
+
+def _train_samples(rle_mod, n=3, h=112, w=98):
+    """Dataset rows (one object each, with a box, patch ids and an RLE
+    mask) and float-row images of (1, 8, 6) patches."""
+    r = np.random.RandomState(4)
+    rows = []
+    for i in range(n):
+        m = np.zeros((h, w), np.uint8)
+        m[10 + 3 * i : 70, 14 : 60 - 2 * i] = 1
+        rows.append({
+            "id": i, "image_path": [], "problem": f'find "thing {i}"',
+            "solution": {"text": f'The "thing {i}" is <|Obj_0|> here.',
+                         "objects": [{"patches": [1, 2, 5, 6, 7 + i], "bbox": [0.1, 0.1, 0.6, 0.7], "rle": rle_mod.encode(m)}]},
+        })
+    return rows, r
+
+
+@pytest.mark.parametrize("u8", [False, True])
+@pytest.mark.parametrize("random_select", [False, True])
+def test_build_train_batch_matches(u8, random_select):
+    """The same rows, images and seed give the same batch: token ids, VRT
+    penalty masks, object index arrays, boxes and the resized mask targets
+    (the port resizes them in numpy, the original with OpenCV). The original
+    reads only float pixel rows; with uint8 rows it is held to the port's
+    float-row batch."""
+    from padt_tpu.train import data as JD
+    from padt_tpu_torch.train import data as TD
+
+    cfg = JC.padt_tiny()
+    jproc, tproc = tiny_processor(cfg), tiny_processor(torch_cfg(cfg))
+    rows, _ = _train_samples(JR)
+    imgs = [seeded_image((1, 8, 6), 10 + i, False) for i in range(len(rows))]
+    kw = dict(prompt_bucket=128, completion_bucket=32, patch_bucket=cfg.max_image_patches, canvas_hw=(8, 8),
+              random_select_patch=random_select, random_select_patch_num=3, batch_idx=[0, 1, 2])
+    jb = JD.build_train_batch(rows, jproc, cfg, np.random.RandomState(7), images=imgs, **kw)
+    timgs = [port_image(seeded_image((1, 8, 6), 10 + i, True)) for i in range(len(rows))] if u8 else [port_image(i) for i in imgs]
+    tb = TD.build_train_batch(rows, tproc, torch_cfg(cfg), np.random.RandomState(7), images=timgs, **kw)
+    jd, td = dict(jb.model), dict(tb.model)
+    if u8:
+        jd.pop("pixel_patches")
+        np.testing.assert_array_equal(JV.expand_u8_rows(td.pop("pixel_patches_u8")[0, :48]), imgs[0].pixel_patches)
+    _same(jd, td, "model")
+    _same(jb.meta, tb.meta, "meta")
+    assert tb.prompt_length == jb.prompt_length and td["gt_mask"].sum() > 0
+    np.testing.assert_array_equal(tb.rope_deltas, jb.rope_deltas)
+
+
+def test_resize_linear_matches_cv2():
+    """`resize_linear` vs cv2.resize (INTER_LINEAR, float32): up- and
+    downscales, an exact 2x downscale (OpenCV's area path), binary masks and
+    noise. Values within 1e-6 (OpenCV's SIMD path may fuse a multiply-add),
+    and the thresholded mask targets identical."""
+    import cv2
+
+    from padt_tpu_torch.train.data import resize_linear
+
+    r = np.random.RandomState(0)
+    shapes = [(112, 112, (32, 32)), (112, 112, (56, 56)), (644, 644, (184, 184)), (480, 640, (184, 136)),
+              (37, 53, (100, 80)), (300, 200, (64, 96)), (50, 50, (200, 200)), (97, 131, (48, 32)), (427, 640, (184, 124))]
+    for h, w, dsize in shapes:
+        box = np.zeros((h, w), np.float32)
+        box[h // 5 : h // 2, w // 7 : (3 * w) // 4] = 1.0
+        for m in (box, (r.rand(h, w) > 0.6).astype(np.float32), r.rand(h, w).astype(np.float32)):
+            a, b = cv2.resize(m, dsize), resize_linear(m, dsize)
+            assert a.shape == b.shape == (dsize[1], dsize[0]) and b.dtype == np.float32
+            assert np.abs(a - b).max() <= 1e-6, (h, w, dsize)
+            np.testing.assert_array_equal(a > 0.5, b > 0.5)
+
+
+def test_synthesis_and_sampler_match():
+    from padt_tpu.train import data as JD
+    from padt_tpu.train import trainer as JTr
+    from padt_tpu_torch.train import data as TD
+    from padt_tpu_torch.train import trainer as TTr
+
+    cfg = JC.padt_tiny()
+    jproc, tproc = tiny_processor(cfg), tiny_processor(torch_cfg(cfg))
+    rows, _ = _train_samples(JR)
+    for rand in (False, True):
+        for k in (5, -1, 2):
+            a = JD.synthesize_completion(rows[1]["solution"], 6, jproc, np.random.RandomState(3), random_select_patch=rand, random_select_patch_num=k)
+            b = TD.synthesize_completion(rows[1]["solution"], 6, tproc, np.random.RandomState(3), random_select_patch=rand, random_select_patch_num=k)
+            assert a.completion == b.completion
+            _same(a.objects, b.objects)
+    for args in ((10, 4, 0), (9, 2, 5, 2, 1, 3), (8, 4, 1, 1, 2, 2)):
+        assert list(TTr.repeat_random_sampler(*args)) == list(JTr.repeat_random_sampler(*args))
+
+
+def test_prefetch_copy_matches():
+    from padt_tpu.train.prefetch import BatchPrefetcher as JB
+    from padt_tpu_torch.train.prefetch import BatchPrefetcher as TB
+
+    assert list(TB(iter(range(7)), depth=2)) == list(JB(iter(range(7)), depth=2)) == list(range(7))
+
+    def bad():
+        yield 1
+        raise KeyError("boom")
+
+    for cls in (JB, TB):
+        it = cls(bad(), depth=1)
+        assert next(it) == 1
+        with pytest.raises(KeyError):
+            next(it)

@@ -292,3 +292,147 @@ def test_int8_matmul_refuses_what_the_kernel_does_not_take(dev):
         quant.int8_matmul(x[:, :60], wq[:60, :40], s[:40])
     with pytest.raises(ValueError, match="without a copy"):
         quant.int8_matmul(torch.zeros((4, 2, 64), dtype=torch.bfloat16, device=dev).transpose(0, 1), wq, s)
+
+
+# ---------------------------------------------------------------------------
+# Training: H2's LSE output, H1 with the sin negated, H8 flash_bwd_dq and H9
+# flash_bwd_dkv vs their twins; the wrappers refuse inputs that require grad
+# ---------------------------------------------------------------------------
+
+
+def _train_inputs(g, dev, b, s, h, hkv, hd, pad):
+    q, gr = _randn(g, (b, s, h, hd), dev), _randn(g, (b, s, h, hd), dev)
+    k, v = _randn(g, (b, s, hkv, hd), dev), _randn(g, (b, s, hkv, hd), dev)
+    seg = torch.zeros((b, s), dtype=torch.int32, device=dev)
+    seg[0, :pad] = -1  # left padding
+    if b > 2:
+        seg[2] = -1  # a row that sees no key at all
+    return q, k, v, gr, seg
+
+
+@pytest.mark.parametrize("b,s,h,hkv,hd", [(3, 203, 4, 2, 128), (2, 640, 16, 2, 128), (2, 130, 28, 4, 128), (2, 77, 4, 4, 80), (2, 100, 4, 1, 64)])
+def test_segment_flash_lse_matches_plain(dev, b, s, h, hkv, hd):
+    from padt_tpu_torch.ops import cuda_attention as CA
+
+    g = torch.Generator(device=dev).manual_seed(s)
+    q, k, v, _, seg = _train_inputs(g, dev, b, s, h, hkv, hd, 37)
+    out, lse = CA.segment_flash_fwd(q, k, v, seg, seg, True, hd**-0.5, return_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = CA.segment_flash_plain(q, k, v, seg, seg, True, hd**-0.5, return_lse=True)
+    assert _err(out, ref) < TOL
+    empty = ref_lse >= 1e29
+    assert torch.equal(lse >= 1e29, empty)
+    assert (lse - ref_lse)[~empty].abs().max().item() < 1e-3  # fp32 log-sum-exp of bf16 scores
+    assert torch.equal(out, CA.segment_flash_fwd(q, k, v, seg, seg, True, hd**-0.5))  # the LSE changes nothing else
+
+
+@pytest.mark.parametrize("b,s,h,hkv,hd,causal", [
+    (3, 203, 4, 2, 128, True), (2, 640, 16, 2, 128, True), (2, 130, 28, 4, 128, True),
+    (2, 96, 4, 4, 80, False), (2, 100, 4, 1, 64, True),
+])
+def test_flash_bwd_matches_plain(dev, b, s, h, hkv, hd, causal):
+    """dq, dk, dv against the twins from the same LSE and delta; GQA 2:1,
+    8:1, 7:1, 1:1 and 4:1, tails past a 64-row block, a row with no
+    visible key; twice, bit for bit (no atomics)."""
+    from padt_tpu_torch.ops import cuda_attention as CA
+    from padt_tpu_torch.ops import cuda_flash_bwd as FB
+
+    g = torch.Generator(device=dev).manual_seed(s + h)
+    q, k, v, gr, seg = _train_inputs(g, dev, b, s, h, hkv, hd, 37)
+    if not causal:
+        seg = torch.sort(torch.randint(0, 3, (b, s), generator=g, device=dev), dim=1).values.int()
+        seg[:, -11:] = -1
+    scale = hd**-0.5
+    out, lse = CA.segment_flash_fwd(q, k, v, seg, seg, causal, scale, return_lse=True)
+    delta = (gr.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, gr, seg, seg, lse, delta, causal, scale)
+    n0 = dict(FB.launch_counts)
+    dq = FB.flash_bwd_dq(*args)
+    dk, dv = FB.flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    assert FB.launch_counts == {k_: n0[k_] + 1 for k_ in n0}
+    rq, (rk, rv) = FB.flash_bwd_dq_plain(*args), FB.flash_bwd_dkv_plain(*args)
+    for got, ref in ((dq, rq), (dk, rk), (dv, rv)):
+        assert got.shape == ref.shape and got.dtype == torch.bfloat16
+        assert _err(got, ref) <= 2e-2 * ref.float().abs().max().item()
+    assert float(dq[seg < 0].float().abs().max()) == 0.0
+    dq2 = FB.flash_bwd_dq(*args)
+    dk2, dv2 = FB.flash_bwd_dkv(*args)
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+def test_rope_negated_sin_is_the_vjp(dev):
+    """H1 with sin_sign -1 matches its twin, and undoes the rotation."""
+    from padt_tpu_torch.ops import cuda_attention as CA
+    from padt_tpu_torch.ops.rope import mrope_cos_sin
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    b, s, hq, hk, hd = 2, 640, 16, 2, 128
+    pos = torch.arange(s, device=dev)[None].expand(3, b, s)
+    cos, sin = mrope_cos_sin(pos, hd, (16, 24, 24))
+    q, k = _randn(g, (b, s, hq * hd), dev), _randn(g, (b, s, hk * hd), dev)
+    dq, dk = CA.rope_qk(q, k, cos, sin, hq, hk, sin_sign=-1.0)
+    torch.cuda.synchronize()
+    pq, pk = CA.rope_qk_plain(q, k, cos, sin, hq, hk, sin_sign=-1.0)
+    assert _err(dq, pq) < TOL and _err(dk, pk) < TOL
+    qr, _ = CA.rope_qk(q, None, cos, sin, hq, 0)
+    back, _ = CA.rope_qk(qr, None, cos, sin, hq, 0, sin_sign=-1.0)
+    assert _err(back, q) < 3 * TOL  # two bf16 roundings
+
+
+def test_autograd_functions_run_the_kernels(dev):
+    """causal_attention and rope_pair_packed under autograd on the card:
+    gradients through H2+LSE, H8/H9 and H1 forward and VJP, close to the
+    twins' gradients on the same inputs moved to the CPU in float32."""
+    from padt_tpu_torch.ops import attention as A
+    from padt_tpu_torch.ops import cuda_attention as CA
+    from padt_tpu_torch.ops import cuda_flash_bwd as FB
+    from padt_tpu_torch.ops.rope import mrope_cos_sin
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    b, s, h, hkv, hd = 2, 256, 8, 2, 128
+    pos = torch.arange(s, device=dev)[None].expand(3, b, s)
+    cos, sin = mrope_cos_sin(pos, hd, (16, 24, 24))
+    qp, kp = _randn(g, (b, s, h * hd), dev), _randn(g, (b, s, hkv * hd), dev)
+    v, w = _randn(g, (b, s, hkv, hd), dev), _randn(g, (b, s, h, hd), dev)
+    valid = torch.ones((b, s), dtype=torch.bool, device=dev)
+    valid[0, :50] = False
+
+    def run(qp, kp, v, cos, sin, valid, w):
+        qp, kp, v = (t.detach().requires_grad_() for t in (qp, kp, v))
+        q, k = A.rope_pair_packed(qp, kp, cos, sin, h, hkv)
+        out = A.causal_attention(q.unflatten(-1, (h, hd)), k.unflatten(-1, (hkv, hd)), v, valid)
+        (out.float() * w.float() * valid[:, :, None, None]).sum().backward()
+        return [t.grad.float().cpu() for t in (qp, kp, v)]
+
+    n_rope, n_fwd, n_bwd = CA.launch_counts["rope_qk"], CA.launch_counts["segment_flash_fwd"], dict(FB.launch_counts)
+    got = run(qp, kp, v, cos, sin, valid, w)
+    torch.cuda.synchronize()
+    assert CA.launch_counts["rope_qk"] == n_rope + 2 and CA.launch_counts["segment_flash_fwd"] == n_fwd + 1
+    assert all(FB.launch_counts[k_] == n_bwd[k_] + 1 for k_ in n_bwd)
+    cpu = lambda t: t.float().cpu()
+    ref = run(*(cpu(t) for t in (qp, kp, v, cos, sin)), valid.cpu(), cpu(w))
+    for a, r in zip(got, ref):
+        assert (a - r).abs().max().item() <= 3e-2 * r.abs().max().item()
+
+
+def test_wrappers_refuse_inputs_that_require_grad(dev):
+    """Outside their autograd Functions the kernel wrappers raise on CUDA
+    inputs that require grad (the raw-pointer output would cut the graph);
+    under no_grad they run."""
+    from padt_tpu_torch.ops import cuda_attention as CA
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = _randn(g, (1, 64, 2, 64), dev).requires_grad_()
+    seg = torch.zeros((1, 64), dtype=torch.int32, device=dev)
+    cos = torch.ones((1, 64, 64), device=dev)
+    with pytest.raises(RuntimeError, match="cut the autograd graph"):
+        CA.segment_flash_fwd(q, q.detach(), q.detach(), seg, seg, True, 0.125)
+    with pytest.raises(RuntimeError, match="cut the autograd graph"):
+        CA.window_slot_attn(q, q.detach(), q.detach(), seg, 0.125)
+    with pytest.raises(RuntimeError, match="cut the autograd graph"):
+        CA.rope_qk(q.flatten(2), None, cos, cos * 0, 2, 0)
+    with torch.no_grad():
+        CA.segment_flash_fwd(q, q, q, seg, seg, True, 0.125)
+        CA.rope_qk(q.flatten(2), None, cos, cos * 0, 2, 0)
+    torch.cuda.synchronize()
