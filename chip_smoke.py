@@ -9,34 +9,49 @@ one process per source, into build/padt_tpu_torch/), then:
   2. holds each kernel against its plain PyTorch twin at the shapes the main
      paths give it, PaDT-3B's and PaDT-7B's (bf16 attention outputs: max abs
      error over all rows, tolerance 2e-2, bf16 output rounding plus a
-     different order of sums; the int8 row store: byte-identical), and times
+     different order of sums; H4's QI8 mode: one bf16 ulp of its largest
+     output, and a mean gap from its twin at most a quarter of its gap from
+     the bf16-score twin; the int8 row store: byte-identical), and times
      the kernel, the twin and, where one exists, the one PyTorch call that
      computes the same function, with CUDA events, beside the kernel's bound
      (the larger of its bytes over 3.35 TB/s and its operations over the
-     peak rate of their type);
-  3. checks the vision tower, bf16 prefill, int8 prefill, one int8 suffix
-     pass and one int8 decode step of a tiny model on the card against the
-     plain float32 CPU path, with dense bf16 weights and again with int8
-     weights (`quantize_params` + `pack_inference_params` run on the card,
-     every text-layer product through H7); then `padt_loss` with its
-     gradients (frozen tower, all four losses) on the card in bf16 against
-     the float32 CPU path (loss within 5e-2 relative, each trainable leaf's
-     gradient within 0.1 in relative norm, the whole gradient's cosine at
-     least 0.995);
-  4. runs PaDT-3B REC inference through `InferenceEngine.run_batch` (random
+     peak rate of their type); the int8 KV forms beside the serve path's
+     (K13-K18, H4 without its fresh column or with n_valid, H5 with the
+     causal limit, H6 into one layer) and H4's int8 x int8 score mode
+     (PADT_DECODE_QI8) among them;
+  3. [forms]: drives the older forms through `ops.kv_cache` (store-then-
+     attend over the 36 layers, unstacked and layer=, n_valid) with the
+     launch counters reset before and read after, exact launches, and holds
+     them against the serve path's fresh forms;
+  4. checks the vision tower, bf16 prefill, int8 prefill, one int8 suffix
+     pass, one int8 decode step and one QI8 decode step of a tiny model on
+     the card against the plain float32 CPU path, with dense bf16 weights and
+     again with int8 weights (`quantize_params` + `pack_inference_params` run
+     on the card, every text-layer product through H7), the QI8 step's
+     greedy tokens equal wherever the CPU's top-2 margin exceeds the logit
+     error; then `padt_loss` with its gradients (frozen tower, all four
+     losses) on the card in bf16 against the float32 CPU path (loss within
+     5e-2 relative, each trainable leaf's gradient within 0.1 in relative
+     norm, the whole gradient's cosine at least 0.995);
+  5. runs PaDT-3B REC inference through `InferenceEngine.run_batch` (random
      weights from a seeded generator, 4 prompts over 644px-class images of
      46x46 patches, 32 new tokens, bf16 KV) with the launch counters reset
      just before and read just after, runs `vl_decode` on 4 forced objects,
      checks every output is finite and of the expected shape, and times
      vision, prefill and decode;
-  5. serves PaDT-3B through the continuous-batching engine (int8 KV, packed
+  6. serves PaDT-3B through the continuous-batching engine (int8 KV, packed
      weights, 8 slots): `run_stream` of 16 REC requests, `ServeEngine.run`
      with budgets of 8..32 tokens, `run_stream(share_prefix=True)` of 8
      prompts over 2 images, and a speculative=4 engine run, with the launch
      counters reset just before and read just after; checks the outputs and
      the launch floors, and prints wall, device prefill / decode seconds,
      decode tok/s and slot utilization;
-  6. [train]: trains PaDT-3B through `PaDTTrainer.train()` for 4 steps on
+  7. [qi8]: the same weights with PADT_DECODE_QI8's int8 x int8 decode
+     scores: int8 `generate` of 4 queries (first without QI8) and
+     `run_stream` of 16 requests over 8 slots (step 6's first run is the one
+     without); exact QI8 launches (36 per decode step), finite outputs, the
+     greedy tokens' agreement printed;
+  8. [train]: trains PaDT-3B through `PaDTTrainer.train()` for 4 steps on
      the same (random, seeded) weights: frozen tower, AdamW (lr 2e-5, max
      grad norm 1.0), batch 8 of a synthetic 32-sample REC dataset (46x46
      patches, one box and one RLE mask each), prompt bucket 640 +
@@ -48,7 +63,7 @@ one process per source, into build/padt_tpu_torch/), then:
      update this small cannot move in bf16, reached by a gradient), the
      tower bitwise unchanged, and prints s/step, tokens/s, MFU and peak
      memory;
-  7. [7b]: frees PaDT-3B, builds PaDT-7B at full depth and width with int8
+  9. [7b]: frees PaDT-3B, builds PaDT-7B at full depth and width with int8
      packed text-layer weights on the card (`init_padt_params_quantized`,
      seeded), holds H7 against its twin at the 7B products' shapes (M = 8
      decode rows and M = 2560 prefill rows, walking the 28 layers' weights),
@@ -56,7 +71,12 @@ one process per source, into build/padt_tpu_torch/), then:
      requests (int8 KV, 8 slots, bucket 4, prompt 640, 32 new tokens), each
      with the launch counters reset before and read after, checks the
      outputs and the launch floors, and prints the times;
-  8. prints the kernels' JSON line, then the result line
+ 10. [stream]: `tools/micro_stream_matmul.py` at PaDT-3B, B = 96, 36 layers
+     (torch, H10 with the norms fused, H10 without): device ms and GB/s per
+     pass, exactly 4 x 36 H10 launches per pass, each output as close to the
+     float32 loop as twice the torch variant's; then H10's kernel lines at
+     the four products, fused and unfused;
+ 11. prints the kernels' JSON line, then the result line
      {"ok": true, "device": {...}} last.
 Any failure raises, and the script exits non-zero without the result line.
 It needs CUDA; it imports nothing of JAX and nothing of the JAX package.
@@ -67,6 +87,7 @@ from __future__ import annotations
 import gc
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -76,6 +97,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL = 2e-2  # bf16 outputs of magnitude ~1: output rounding + sum order
+APART = 0.25  # a mode's kernel: its mean abs gap from its twin at most this share of its gap from another mode's twin
 TINY_REL_TOL = 5e-2  # tiny model in bf16 with kernels vs float32 plain path
 TINY_GRAD_REL_TOL = 0.1  # each trainable leaf's gradient, relative norm, bf16 card vs float32 CPU
 TINY_GRAD_COS = 0.995  # cosine of the whole gradient, bf16 card vs float32 CPU
@@ -93,6 +115,7 @@ KV_SLOTS, KV_CAP = 16, 768  # int8 kernel lines: a 16-slot pool, capacity 640 + 
 SUFFIX_K = 32  # rows of a suffix pass (H5's kq, H6's widest store)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_TENSOR_FLOPS = 989e12  # dense bf16 tensor-core peak
+INT8_TENSOR_OPS = 1979e12  # dense int8 tensor-core peak
 FP32_FLOPS = 67e12  # fp32 outside the tensor cores
 L2_WALK_BYTES = 150e6  # weight bytes a timing walk cycles through: three times the 50 MB L2
 
@@ -123,13 +146,34 @@ def cuda_ms(fn, iters=10, warmup=2, hide_host=True):
 def bound_ms(n_bytes, ops, peak):
     """(ms, "bytes" or "operations"): the least time of the work on the card,
     its bytes over the HBM rate or its operations over `peak`, whichever is
-    larger."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / peak
+    larger. `ops` and `peak` may be tuples, one entry per type of operation
+    (the int8 x int8 scores beside the bf16 P.V)."""
+    if not isinstance(ops, tuple):
+        ops, peak = (ops,), (peak,)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, sum(o / p for o, p in zip(ops, peak))
     return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
 
 
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bf16_ulp(x):
+    """The spacing of bf16 numbers (8 significant bits) at magnitude x > 0."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def mean_abs_gap(a, b):
+    return (a.float() - b.float()).abs().mean().item()
+
+
+def worst_gap(a, ref):
+    """(share of elements of `a` that differ from `ref`, ref's value where
+    the gap is largest, that gap in bf16 ulps of that value)."""
+    d = (a.float() - ref.float()).abs().flatten()
+    i = int(d.argmax())
+    at = abs(ref.float().flatten()[i].item())
+    return (d > 0).float().mean().item(), at, d[i].item() / bf16_ulp(max(at, 2.0**-126))
 
 
 def phase_device():
@@ -174,9 +218,20 @@ def measure(cases, card):
         outs = out if isinstance(out, (tuple, list)) else (out,)
         refs = ref if isinstance(ref, (tuple, list)) else (ref,)
         err = max((a.float() - r.float()).abs().max().item() for a, r in zip(outs, refs))
-        tol = c["tol"] * (max(r.float().abs().max().item() for r in refs) if c.get("relative") else 1.0)
+        top = max(r.float().abs().max().item() for r in refs)
+        tol = c["tol"] * (top if c.get("relative") else 1.0)
+        if c.get("ulp"):  # one bf16 ulp of the largest output: the kernel rounds as its twin does
+            tol = bf16_ulp(top)
         if not err <= tol:
             raise AssertionError(f"{c['name']} [{c['shape']}]: max abs err {err} > {tol}")
+        if "apart" in c:  # a twin of another mode, which the kernel must not be mistaken for
+            near, far = mean_abs_gap(outs[0], refs[0]), mean_abs_gap(outs[0], c["apart"]())
+            differ, at, ulps = worst_gap(outs[0], refs[0])
+            log(f"[kernel] {c['name']}: mean abs gap {near:.3e} from its twin, {far:.3e} from the {c['apart_name']}; "
+                f"{differ:.4f} of the outputs differ from the twin; the largest gap is {ulps:.2f} bf16 ulp of the "
+                f"twin's {at:.4e} there")
+            if not near <= APART * far:
+                raise AssertionError(f"{c['name']}: as close to the {c['apart_name']} ({far}) as to its twin ({near})")
         ms, plain_ms = cuda_ms(c["kern"]), cuda_ms(c["plain"])
         lib_ms = cuda_ms(c["library"]) if c.get("library") else None  # a yardstick: the port never calls it
         b_ms, b_by = bound_ms(*c["bound"])
@@ -228,12 +283,12 @@ def _int8_attn_cases(dev, g, rnd, nl, slots, hkv, gq, hd, cap, path, tag, with_v
     def store_bytes(n_rows):  # each written row read from the new rows once and written once
         return 2 * int(n_rows.sum()) * nl * hkv * (2 * hd + 8)
 
-    attn_ops = lambda q_rows, cols: 4 * hd * hkv * q_rows * cols
+    attn_ops = lambda q_rows, cols: 4 * hd * hkv * q_rows * cols  # QK and PV: int8 is exact in bf16, so bf16 tensor cores
     cases = [dict(
         name="int8_decode_attn", path=path, source="int8_kv.cu", replaces="padt_tpu/ops/kv_cache.py:206", tol=TOL,
         shape=f"{tag}decode {slots} slots x {hkv} kv heads x {gq} q x{hd}, int8 cache {nl}x{cap} (layers in turn), 1 fresh column",
         kern=walk(K.int8_decode_attn, qd, *cache, *fresh1, valid), plain=walk(K.int8_decode_attn_plain, qd, *cache, *fresh1, valid),
-        bound=(layer_bytes + nbytes(qd, *fresh1, valid) + nbytes(qd), attn_ops(gq, int(live.sum()) + slots), FP32_FLOPS),
+        bound=(layer_bytes + nbytes(qd, *fresh1, valid) + nbytes(qd), attn_ops(gq, int(live.sum()) + slots), BF16_TENSOR_FLOPS),
     )]
     if with_verify:
         cases.append(dict(
@@ -242,7 +297,7 @@ def _int8_attn_cases(dev, g, rnd, nl, slots, hkv, gq, hd, cap, path, tag, with_v
             kern=walk(K.int8_verify_attn, qv, *cache, *fresh32, valid, tail=(SUFFIX_K,)),
             plain=walk(K.int8_verify_attn_plain, qv, *cache, *fresh32, valid, tail=(SUFFIX_K,)),
             bound=(layer_bytes + nbytes(qv, *fresh32, valid) + nbytes(qv),
-                   attn_ops(gq * SUFFIX_K, int(live.sum())) + attn_ops(gq, slots * SUFFIX_K * (SUFFIX_K + 1) // 2), FP32_FLOPS),
+                   attn_ops(gq * SUFFIX_K, int(live.sum())) + attn_ops(gq, slots * SUFFIX_K * (SUFFIX_K + 1) // 2), BF16_TENSOR_FLOPS),
         ))
     cases.append(dict(
         name="store_kv_rows", path=path, source="int8_kv.cu", replaces="padt_tpu/ops/kv_cache.py:750", tol=0.0,
@@ -257,6 +312,124 @@ def _int8_attn_cases(dev, g, rnd, nl, slots, hkv, gq, hd, cap, path, tag, with_v
             kern=store(K.store_kv_rows, kbuf, rows32, n32), plain=store(K.store_kv_rows_plain, pbuf, rows32, n32),
             bound=(store_bytes(n32), 0, FP32_FLOPS),
         ))
+    return cases
+
+
+def _kv(dev, g, hd):
+    """Random int8 K/V rows with their fp32 scales: kv(*lead) -> (k8, ks, v8, vs)."""
+    i8 = lambda *shape: torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+    sc = lambda *shape: torch.exp(torch.randn(shape, generator=g, device=dev) * 0.4 - 4.0)
+    return lambda *lead: (i8(*lead, hd), sc(*lead), i8(*lead, hd), sc(*lead))
+
+
+def _kv_form_cases(dev, g, rnd, nl, hkv, gq, hd):
+    """The int8 KV forms beside the serve path's, over caches of `nl` layers
+    that the calls walk in turn (each call reads its layer from HBM): at the
+    serve pool's shape (KV_SLOTS slots, capacity KV_CAP) H4 without its fresh
+    column on a one-layer view (K13) and with layer= (K14), H4 in QI8 mode
+    (K6's int8 x int8 body), H5 with the causal limit instead of fresh columns
+    (K16, the suffix pass's kq = 32), H6 into one layer, 1 and 32 rows (K17,
+    K18); and H4 with n_valid (K15) at B = 96, C = 1280 with 640..1280 live
+    rows per slot, whose bound counts the live rows only."""
+    from padt_tpu_torch.ops import cuda_kv as K
+
+    kv, none4 = _kv(dev, g, hd), (None,) * 4
+    b, cap = KV_SLOTS, KV_CAP
+    cache = kv(nl, b, hkv, cap)
+    cols = torch.arange(cap, device=dev)[None, :]
+    lens = torch.randint(PROMPT_LEN - 100, cap - SUFFIX_K, (b,), generator=g, device=dev)
+    valid = (cols < lens[:, None]) & (cols >= 40)
+    wp = lens.int().contiguous()
+    valid_sfx = valid | ((cols >= lens[:, None]) & (cols < lens[:, None] + SUFFIX_K))  # the suffix rows are stored
+    fresh1 = kv(b, hkv, 1)
+    qd, qv = rnd(b, hkv, gq, hd), rnd(b, hkv, gq * SUFFIX_K, hd)
+    one, n32 = torch.ones(b, dtype=torch.int32, device=dev), torch.full((b,), SUFFIX_K, dtype=torch.int32, device=dev)
+    row1 = [t[None] for t in kv(b, hkv, 1)]  # one layer's rows, (1, B, Hkv, n, ...)
+    row32 = [t[None] for t in kv(b, hkv, SUFFIX_K)]
+    kbuf, pbuf = [t.clone() for t in cache], [t.clone() for t in cache]
+    layer_bytes = nbytes(*cache) // nl
+
+    def walk(fn, *head, tail=(), view=False, **kw):
+        """fn over layers 0, 1, ...: with layer= (fn(*head, *cache, ..., layer)),
+        or on a one-layer view of layer i (view=True)."""
+        nxt = itertools.cycle(range(nl)).__next__
+
+        def call():
+            i = nxt()
+            return fn(*head, *(t[i : i + 1] for t in cache), *tail, 0, **kw) if view else fn(*head, *cache, *tail, i, **kw)
+
+        return call
+
+    def store(fn, buf, rows, n):
+        nxt = itertools.cycle(range(nl)).__next__
+
+        def call():
+            i = nxt()
+            fn(*(t[i : i + 1] for t in buf), *rows, wp, n)
+            return buf
+
+        return call
+
+    attn_ops = lambda q_rows, cols_: 4 * hd * hkv * q_rows * cols_  # QK and PV: int8 is exact in bf16, so bf16 tensor cores
+    live, live_sfx = int(valid.sum()), int(valid_sfx.sum())
+    qi8_ops = (2 * hd * hkv * gq * live, 2 * hd * hkv * gq * (live + 2 * b))  # int8 x int8 scores; fresh scores + PV in bf16
+    dec = f"decode {b} slots x {hkv} kv heads x {gq} q x{hd}, int8 cache {nl}x{cap} (layers in turn)"
+    cases = [
+        dict(name="int8_decode_attn", path="forms", source="int8_kv.cu", replaces="padt_tpu/ops/kv_cache.py:87", tol=TOL,
+             shape=f"K13 {dec}, unstacked (a one-layer view), no fresh column",
+             kern=walk(K.int8_decode_attn, qd, tail=(*none4, valid), view=True),
+             plain=walk(K.int8_decode_attn_plain, qd, tail=(*none4, valid), view=True),
+             bound=(layer_bytes + nbytes(qd, valid) + nbytes(qd), attn_ops(gq, live), BF16_TENSOR_FLOPS)),
+        dict(name="int8_decode_attn", path="forms", source="int8_kv.cu", replaces="padt_tpu/ops/kv_cache.py:135", tol=TOL,
+             shape=f"K14 {dec}, layer=, no fresh column",
+             kern=walk(K.int8_decode_attn, qd, tail=(*none4, valid)), plain=walk(K.int8_decode_attn_plain, qd, tail=(*none4, valid)),
+             bound=(layer_bytes + nbytes(qd, valid) + nbytes(qd), attn_ops(gq, live), BF16_TENSOR_FLOPS)),
+        dict(name="int8_decode_attn_qi8", path="3b_qi8", source="int8_kv.cu", replaces="padt_tpu/ops/kv_cache.py:173", tol=TOL,
+             shape=f"K6 quantize_q (int8 x int8 scores) {dec}, 1 fresh column",
+             kern=walk(K.int8_decode_attn, qd, tail=(*fresh1, valid), quantize_q=True),
+             plain=walk(K.int8_decode_attn_plain, qd, tail=(*fresh1, valid), quantize_q=True), ulp=True,
+             apart=walk(K.int8_decode_attn_plain, qd, tail=(*fresh1, valid)), apart_name="bf16-score twin",
+             bound=(layer_bytes + nbytes(qd, *fresh1, valid) + nbytes(qd), qi8_ops, (INT8_TENSOR_OPS, BF16_TENSOR_FLOPS))),
+        dict(name="int8_verify_attn", path="forms", source="int8_kv.cu", replaces="padt_tpu/ops/kv_cache.py:1340", tol=TOL,
+             shape=f"K16 suffix pass {b} slots x {hkv} kv heads x ({gq}x{SUFFIX_K}) q x{hd}, int8 cache {nl}x{cap} holding the "
+                   f"{SUFFIX_K} new rows (layers in turn), causal limit from write_pos",
+             kern=walk(K.int8_verify_attn, qv, tail=(*none4, valid_sfx), kq=SUFFIX_K, write_pos=wp),
+             plain=walk(K.int8_verify_attn_plain, qv, tail=(*none4, valid_sfx), kq=SUFFIX_K, write_pos=wp),
+             bound=(layer_bytes + nbytes(qv, valid_sfx) + nbytes(qv), attn_ops(gq * SUFFIX_K, live_sfx), BF16_TENSOR_FLOPS)),
+        dict(name="store_kv_rows", path="forms", source="int8_kv.cu", replaces="padt_tpu/ops/kv_cache.py:683", tol=0.0,
+             shape=f"K17 one row per slot into one layer (layers in turn) x {b} slots x {hkv} kv heads, capacity {cap}",
+             kern=store(K.store_kv_rows, kbuf, row1, one), plain=store(K.store_kv_rows_plain, pbuf, row1, one),
+             bound=(2 * b * hkv * (2 * hd + 8), 0, FP32_FLOPS)),
+        dict(name="store_kv_rows", path="forms", source="int8_kv.cu", replaces="padt_tpu/ops/kv_cache.py:1220", tol=0.0,
+             shape=f"K18 {SUFFIX_K} rows per slot into one layer (layers in turn) x {b} slots x {hkv} kv heads, capacity {cap}",
+             kern=store(K.store_kv_rows, kbuf, row32, n32), plain=store(K.store_kv_rows_plain, pbuf, row32, n32),
+             bound=(2 * SUFFIX_K * b * hkv * (2 * hd + 8), 0, FP32_FLOPS)),
+    ]
+    # K15 at the decode micro-benchmark's shape: 96 slots, capacity 1280, 640..1280 live rows
+    b96, c96 = 96, 1280
+    big = kv(nl, b96, hkv, c96)
+    nv = torch.randint(640, c96 + 1, (b96,), generator=g, device=dev, dtype=torch.int32)
+    valid96 = torch.arange(c96, device=dev)[None, :] < nv[:, None]
+    q96 = rnd(b96, hkv, gq, hd)
+
+    def tiled(fn):
+        nxt = itertools.cycle(range(nl)).__next__
+
+        def call():
+            i = nxt()
+            return fn(q96, *(t[i : i + 1] for t in big), *none4, valid96, 0, n_valid=nv)
+
+        return call
+
+    n_live = int(nv.sum())
+    # the twin rounds as K15 does (p against the running max, per 256-row tile) and the kernel as the one-pass
+    # softmax (p / denom): tolerance relative to the output's largest magnitude, as JAX's own 2e-2 rtol
+    cases.append(dict(
+        name="int8_decode_attn", path="forms", source="int8_kv.cu", replaces="padt_tpu/ops/kv_cache.py:545", tol=TOL, relative=True,
+        shape=f"K15 decode {b96} slots x {hkv} kv heads x {gq} q x{hd}, unstacked int8 cache {nl}x{c96} (layers in turn), "
+              f"n_valid 640..{c96} ({n_live / b96:.0f} live rows per slot on average)",
+        kern=tiled(K.int8_decode_attn), plain=tiled(K.int8_decode_attn_plain),
+        bound=(n_live * (hkv * (2 * hd + 2 * 4) + 1) + 2 * nbytes(q96) + nbytes(nv), attn_ops(gq, n_live), BF16_TENSOR_FLOPS)))
     return cases
 
 
@@ -400,6 +573,9 @@ def phase_kernels(dev, card):
              bound=(vis_bytes, 4 * hd * h * win_pairs, BF16_TENSOR_FLOPS)),
         *_int8_attn_cases(dev, g, rnd, c3.num_hidden_layers, KV_SLOTS, c3.num_key_value_heads,
                           c3.num_attention_heads // c3.num_key_value_heads, c3.head_dim, KV_CAP, "3b_serve", "", True),
+        # the older int8 KV forms (K13-K18) and the QI8 score mode at the serve pool's shape, K15 at B = 96, C = 1280
+        *_kv_form_cases(dev, g, rnd, c3.num_hidden_layers, c3.num_key_value_heads,
+                        c3.num_attention_heads // c3.num_key_value_heads, c3.head_dim),
         # PaDT-7B: 28 q / 4 kv heads (G = 7), a 4-row prefill bucket, an 8-slot pool of 28 layers
         *_text_cases(dev, rnd, BATCH, c7.num_attention_heads, c7.num_key_value_heads, c7.head_dim, "7b", "7B "),
         *_int8_attn_cases(dev, g, rnd, c7.num_hidden_layers, SERVE_SLOTS, c7.num_key_value_heads,
@@ -582,6 +758,7 @@ def phase_tiny_reference(dev):
     from padt_tpu_torch.ops import cuda_attention as C
     from padt_tpu_torch.ops import cuda_kv as K
     from padt_tpu_torch.ops import cuda_quant as Q
+    from padt_tpu_torch.ops import kv_cache as KC
     from padt_tpu_torch.preprocess.vision_process import ProcessedImage
     from padt_tpu_torch.serve import engine as S
     from padt_tpu_torch.utils.mock_tokenizer import make_tiny_tokenizer
@@ -600,7 +777,7 @@ def phase_tiny_reference(dev):
     ]
     batch = proc.build_batch(['find "x"', 'where is "y"'], imgs, patch_bucket=cfg.max_image_patches)
     sfx_ids = np.random.RandomState(7).randint(0, 100, (2, SUFFIX_K))
-    sfx_len, step_ids = [5, 3], [[11], [12]]
+    sfx_len, step_ids, qi8_ids = [5, 3], [[11], [12]], [[13], [14]]
 
     def run(params, device):
         tb = {k: torch.as_tensor(v, device=device) for k, v in batch.data.items()}
@@ -616,23 +793,41 @@ def phase_tiny_reference(dev):
             S._suffix_prefill_step(params, cfg, st, T(sfx_ids), T(sfx_len))
             h_sfx = st.cur_hidden.float().cpu()
             h_step = S._decode_step_slots(params["text"], cfg.text, P.extended_embed(params, cfg, T(step_ids), st.proto), st)
-        return art.merged.float().cpu(), hid.float().cpu(), valid.cpu(), h_sfx, h_step.float().cpu()
+            st.write_pos, st.text_pos = st.write_pos + 1, st.text_pos + 1  # the next position, as decode_chunk moves it
+            before = KC._QI8_DEFAULT
+            KC._QI8_DEFAULT = True  # a second decode step with PADT_DECODE_QI8's int8 x int8 scores
+            try:
+                h_qi8 = S._decode_step_slots(params["text"], cfg.text, P.extended_embed(params, cfg, T(qi8_ids), st.proto), st)
+            finally:
+                KC._QI8_DEFAULT = before
+            logits = P.extended_logits(params, cfg, h_qi8, st.proto, st.num_merged)[:, 0].float().cpu()
+        return art.merged.float().cpu(), hid.float().cpu(), valid.cpu(), h_sfx, h_step.float().cpu(), h_qi8.float().cpu(), logits
 
     quantized = lambda p: P.pack_inference_params(P.quantize_params(p))
     for weights, ref_params, dev_params in (("bf16", p32, p16), ("int8", quantized(p32), quantized(p16))):
         if weights == "int8" and dev_params["text"]["layers"]["qkv_w_q"].device != dev:
             raise AssertionError("the int8 weights were not quantized on the card")
-        n0 = (sum(C.launch_counts.values()), sum(K.launch_counts.values()), Q.launch_counts["int8_matmul"])
-        m_ref, h_ref, valid, s_ref, d_ref = run(ref_params, "cpu")
-        m_dev, h_dev, _, s_dev, d_dev = run(dev_params, dev)
-        n1 = (sum(C.launch_counts.values()), sum(K.launch_counts.values()), Q.launch_counts["int8_matmul"])
-        if n1[0] == n0[0] or n1[1] == n0[1] or (weights == "int8" and n1[2] == n0[2]):
+        n0 = (sum(C.launch_counts.values()), sum(K.launch_counts.values()), Q.launch_counts["int8_matmul"], K.launch_counts["int8_decode_attn_qi8"])
+        m_ref, h_ref, valid, s_ref, d_ref, q_ref, lg_ref = run(ref_params, "cpu")
+        m_dev, h_dev, _, s_dev, d_dev, q_dev, lg_dev = run(dev_params, dev)
+        n1 = (sum(C.launch_counts.values()), sum(K.launch_counts.values()), Q.launch_counts["int8_matmul"], K.launch_counts["int8_decode_attn_qi8"])
+        if n1[0] == n0[0] or n1[1] == n0[1] or (weights == "int8" and n1[2] == n0[2]) or n1[3] - n0[3] != cfg.text.num_hidden_layers:
             raise AssertionError(f"tiny reference run ({weights} weights) launched no kernel of a kind on the card")
+        # greedy tokens of the QI8 step: equal wherever the CPU's top-2 logit margin exceeds twice the card's largest logit error
+        top2 = lg_ref.topk(2, dim=-1).values
+        lg_err = (lg_dev - lg_ref).abs().max().item()
+        decided = (top2[:, 0] - top2[:, 1]) > 2 * lg_err
+        tok_dev, tok_ref = lg_dev.argmax(-1), lg_ref.argmax(-1)
+        log(f"[reference] tiny QI8 decode step, {weights} weights: greedy tokens card {tok_dev.tolist()} vs CPU {tok_ref.tolist()}, "
+            f"{int(decided.sum())} of {len(decided)} rows decided beyond the logit error {lg_err:.3e}")
+        if not bool((tok_dev == tok_ref)[decided].all()):
+            raise AssertionError(f"tiny QI8 decode step ({weights} weights): a decided greedy token differs from the CPU's")
         for name, a, r, rows in (
             ("merged", m_dev, m_ref, [slice(0, grids[i][1] * grids[i][2] // 4) for i in range(2)]),
             ("prefill hidden", h_dev, h_ref, "valid"),
             ("int8 suffix-pass hidden", s_dev, s_ref, None),
             ("int8 decode-step hidden", d_dev, d_ref, None),
+            ("int8 QI8 decode-step hidden", q_dev, q_ref, None),
         ):
             if rows is None:
                 diff, mag = (a - r).abs().max().item(), r.abs().max().item()
@@ -816,7 +1011,8 @@ def phase_serve(dev, card, cfg, model, proc):
     """PaDT-3B through the continuous-batching serve engine (int8 KV, packed
     weights): run_stream, ServeEngine.run with mixed budgets, share_prefix
     run_stream and a speculative=4 engine. Returns the launch counts of the
-    whole phase and the forward counts that set their floors."""
+    whole phase, the forward counts that set their floors, and the first
+    run_stream (results, wall, stats): [qi8]'s run without QI8."""
     from padt_tpu_torch.eval.harness import InferenceEngine
     from padt_tpu_torch.serve import ServeEngine
 
@@ -840,6 +1036,7 @@ def phase_serve(dev, card, cfg, model, proc):
     wall = time.perf_counter() - t0
     _check_results("run_stream", results, SERVE_REQUESTS)
     sp = engine.pop_stream_stats()
+    base = dict(results=results, wall=wall, sp=sp)
     forwards["decode"] += sp["decode_steps"]
     report("run_stream", wall, sp["engine_prefill_s"], sp["engine_decode_s"], sp["generated_tokens"], sp["decode_steps"], SERVE_REQUESTS)
     if sp["generated_tokens"] < SERVE_REQUESTS:
@@ -896,7 +1093,7 @@ def phase_serve(dev, card, cfg, model, proc):
 
     counts = {k: v for c in counters for k, v in c.launch_counts.items()}
     log(f"[serve] launches {counts}; forwards {forwards}")
-    return counts, forwards
+    return counts, forwards, base
 
 
 def check_serve_launches(cfg, counts, forwards, what="the serve phase"):
@@ -1025,22 +1222,282 @@ def phase_7b(dev, card):
     return entries, launches
 
 
+def phase_forms(dev, card, cfg):
+    """[forms]: the op-level API of `ops.kv_cache` in its older forms (no
+    fresh_kv) at the serve pool's shape over the 3B's layers, with the launch
+    counters reset just before and read just after:
+      1. a decode step as those forms compose it: per layer, store_kv_rows
+         (layer=, K17) lands the token's row, then decode_attention_int8
+         (layer=, K14) reads the updated cache;
+      2. a 32-token suffix pass on a second cache: store_kv_rows_k (layer=,
+         K18), then decode_attention_int8_multi (layer=, K16);
+      3. one unstacked layer: store_kv_rows, decode_attention_int8 (K13),
+         decode_attention_int8(n_valid=) (K15), store_kv_rows_k,
+         decode_attention_int8_multi.
+    1 and 2 agree within TOL with the serve path's fresh forms (K6, K8) on
+    the pre-update caches, computed before the counted run; every output is
+    finite; the launches are exact. Returns the launch counts."""
+    from padt_tpu_torch.ops import kv_cache as KC
+
+    tc = cfg.text
+    nl, hkv, hd, h = tc.num_hidden_layers, tc.num_key_value_heads, tc.head_dim, tc.num_attention_heads
+    b, cap = KV_SLOTS, KV_CAP
+    g = torch.Generator(device=dev).manual_seed(11)
+    kv = _kv(dev, g, hd)
+    rnd = lambda *shape: (torch.randn(shape, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    caches = [kv(nl, b, hkv, cap), None]
+    caches[1] = [t.clone() for t in caches[0]]
+    cols = torch.arange(cap, device=dev)[None, :]
+    lens = torch.randint(PROMPT_LEN - 100, cap - SUFFIX_K, (b,), generator=g, device=dev)
+    pos = lens.int()
+    valid = (cols < lens[:, None]) & (cols >= 40)
+    valid1 = valid | (cols == lens[:, None])
+    valid32 = valid | ((cols >= lens[:, None]) & (cols < lens[:, None] + SUFFIX_K))
+    rows1, rows32 = kv(nl, b, hkv, 1), kv(nl, b, hkv, SUFFIX_K)
+    q1, q32 = rnd(b, 1, h, hd), rnd(b, SUFFIX_K, h, hd)
+    at = lambda rows, li: tuple(t[li] for t in rows)
+    with torch.inference_mode():
+        ref1 = [KC.decode_attention_int8(q1, *caches[0], valid, layer=li, fresh_kv=at(rows1, li)) for li in range(nl)]
+        ref32 = [KC.decode_attention_int8_multi(q32, *caches[1], valid, pos, layer=li, fresh_kv=at(rows32, li)) for li in range(nl)]
+        uni = [t[0].clone() for t in caches[0]]  # one unstacked layer
+        counters = _counters()
+        for c in counters:
+            c.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out1, out32 = [], []
+        for li in range(nl):
+            KC.store_kv_rows(*caches[0], *at(rows1, li), pos, layer=li)
+            out1.append(KC.decode_attention_int8(q1, *caches[0], valid1, layer=li))
+        for li in range(nl):
+            KC.store_kv_rows_k(*caches[1], *at(rows32, li), pos, layer=li)
+            out32.append(KC.decode_attention_int8_multi(q32, *caches[1], valid32, pos, layer=li))
+        KC.store_kv_rows(*uni, *at(rows1, 0), pos)
+        u13 = KC.decode_attention_int8(q1, *uni, valid1)
+        u15 = KC.decode_attention_int8(q1, *uni, valid1, n_valid=lens + 1)
+        KC.store_kv_rows_k(*uni, *at(rows32, 0), pos)
+        u16 = KC.decode_attention_int8_multi(q32, *uni, valid32, pos)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {k: v for c in counters for k, v in c.launch_counts.items()}
+    need = {"int8_decode_attn": nl + 2, "int8_decode_attn_qi8": 0, "int8_verify_attn": nl + 1, "store_kv_rows": 2 * nl + 2}
+    if {k: counts[k] for k in need} != need:
+        raise AssertionError(f"[forms] launches {counts}, expected exactly {need}")
+    for name, t, shape in (("K13", u13, q1.shape), ("K15", u15, q1.shape), ("K16 unstacked", u16, q32.shape)):
+        _finite(f"[forms] {name}", t, shape)
+    err1 = max((o.float() - r.float()).abs().max().item() for o, r in zip(out1, ref1))
+    err32 = max((o.float() - r.float()).abs().max().item() for o, r in zip(out32, ref32))
+    err13 = (u13.float() - out1[0].float()).abs().max().item()  # the same cache as layer 0 of step 1
+    err15 = (u15.float() - u13.float()).abs().max().item()  # n_valid past every live row: the same rows
+    log(f"[forms] {nl} layers x (store_kv_rows + decode_attention_int8) and x (store_kv_rows_k + decode_attention_int8_multi) "
+        f"at {b} slots, capacity {cap}, plus the unstacked forms: {wall * 1e3:.2f} ms wall; vs the fresh forms on the "
+        f"pre-update caches: decode max abs err {err1:.3e}, suffix {err32:.3e}; unstacked K13 vs layer 0 {err13:.3e}, "
+        f"K15 vs K13 {err15:.3e} (tol {TOL}); launches {counts} ({card})")
+    if not max(err1, err32, err13, err15) <= TOL:
+        raise AssertionError("[forms] the older int8 KV forms disagree with the fresh forms")
+    return counts
+
+
+def _report_gen_qi8(tag, card, label, ms, toks, base_toks):
+    same = float((toks == base_toks).float().mean())
+    log(f"[{tag}] {label}: {ms:.2f} ms; greedy tokens equal to the run without QI8 at {same:.4f} of positions "
+        f"(random weights: printed, not held) ({card})")
+
+
+def phase_qi8(dev, card, cfg, model, proc, base):
+    """[qi8]: PaDT-3B served with PADT_DECODE_QI8's int8 x int8 decode scores
+    (`ops.kv_cache._QI8_DEFAULT` set, the flag the variable sets at import),
+    through the entry points a user calls and no new argument: int8
+    `generate` of BATCH REC queries, and `run_stream` of SERVE_REQUESTS
+    requests over SERVE_SLOTS slots (no share_prefix, no speculative: those
+    refuse QI8, as JAX's do). With the counters reset before and read after
+    each run: H4-QI8 exactly once per layer and decode step, H4's bf16 mode
+    and H5 never; finite outputs. The runs without QI8 are the same generate,
+    run first, and the [serve] phase's first run_stream (`base`: the same
+    requests, images and slots); the share of greedy tokens each pair agrees
+    on is printed, not held (random weights). Returns the launch counts of
+    the QI8 runs."""
+    from padt_tpu_torch.eval.harness import InferenceEngine
+    from padt_tpu_torch.models import padt as P
+    from padt_tpu_torch.ops import kv_cache as KC
+
+    nl = cfg.text.num_hidden_layers
+    prompts, images = PROMPTS[:BATCH], [_u8_image(i) for i in range(BATCH)]
+    batch = proc.build_batch(prompts, images, patch_bucket=PATCHES, prompt_bucket=PROMPT_LEN)
+    tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.data.items()}
+    deltas = torch.as_tensor(batch.rope_deltas, device=dev)
+    packed = P.pack_inference_params(model.params)
+    sprompts, simages = _serve_prompts(), [_u8_image(100 + i) for i in range(SERVE_REQUESTS)]  # as phase_serve's
+    counters = _counters()
+    runs = {}
+    before = KC._QI8_DEFAULT
+    try:
+        for qi8 in (False, True):
+            KC._QI8_DEFAULT = qi8
+            for c in counters:
+                c.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                gen = P.generate(packed, cfg, tb, NEW_TOKENS, deltas, eos_token_id=-1, kv_cache_dtype="int8")
+            torch.cuda.synchronize()
+            gen_ms = (time.perf_counter() - t0) * 1e3
+            runs[qi8] = dict(gen=gen, gen_ms=gen_ms, gcounts={k: v for c in counters for k, v in c.launch_counts.items()})
+        engine = InferenceEngine(model.params, cfg, proc, max_new_tokens=NEW_TOKENS)
+        for c in counters:
+            c.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = engine.run_stream(sprompts, simages, n_slots=SERVE_SLOTS, prefill_bucket=SERVE_BUCKET, prompt_bucket=PROMPT_LEN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        scounts = {k: v for c in counters for k, v in c.launch_counts.items()}
+        sp = engine.pop_stream_stats()
+        del engine
+    finally:
+        KC._QI8_DEFAULT = before
+    r0, r1 = runs[False], runs[True]
+    _finite("[qi8] generate hidden", r1["gen"].hidden, (BATCH, NEW_TOKENS, cfg.text.hidden_size))
+    if int(r1["gen"].num_generated.min()) != NEW_TOKENS:
+        raise AssertionError("[qi8] generate did not emit every token")
+    _check_results("[qi8] run_stream", results, SERVE_REQUESTS)
+    steps = sp["decode_steps"]
+    need_g = {"int8_decode_attn_qi8": nl * (NEW_TOKENS - 1), "int8_decode_attn": 0, "int8_verify_attn": 0}
+    need_s = {"int8_decode_attn_qi8": nl * steps, "int8_decode_attn": 0, "int8_verify_attn": 0}
+    for what, counts, need in (("generate", r1["gcounts"], need_g), ("run_stream", scounts, need_s)):
+        if steps < 1 or {k: counts[k] for k in need} != need:
+            raise AssertionError(f"[qi8] {what} launches {counts}, expected exactly {need}")
+    if r0["gcounts"]["int8_decode_attn_qi8"]:
+        raise AssertionError("[qi8] the generate without QI8 launched the QI8 mode")
+    _report_gen_qi8("qi8", card, f"int8 generate of {BATCH} x {NEW_TOKENS} tokens, QI8 (without: {r0['gen_ms']:.2f} ms)",
+                    r1["gen_ms"], r1["gen"].tokens, r0["gen"].tokens)
+    same = sum(a.completion == b.completion for a, b in zip(results, base["results"]))
+    _report_serve("qi8", card, "run_stream with PADT_DECODE_QI8", wall, sp["engine_prefill_s"], sp["engine_decode_s"],
+                  sp["generated_tokens"], steps, SERVE_REQUESTS)
+    log(f"[qi8] run_stream completions equal to [serve]'s run_stream without QI8: {same} of {SERVE_REQUESTS} (printed, "
+        f"not held); that run {base['wall']:.3f} s wall, {base['sp']['engine_decode_s']:.3f} s device decode; launches {scounts}")
+    return {k: r1["gcounts"][k] + scounts[k] for k in scounts}
+
+
+STREAM_B = 96  # decode rows of the [stream] phase (the JAX micro-benchmark's B)
+
+
+def _h10_cases(dev, layers, tcfg):
+    """H10 vs its plain version at PaDT-3B's four decode products, M =
+    STREAM_B, fused (qkv with its bias, gate-up) and unfused, walking the 36
+    layers' weights from call to call; the yardstick is
+    torch.nn.functional.linear, after torch.nn.functional.rms_norm where
+    fused: two PyTorch calls."""
+    import torch.nn.functional as F
+
+    from padt_tpu_torch.ops import matmul as MM
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    eps, nl = tcfg.rms_norm_eps, tcfg.num_hidden_layers
+    cases = []
+    for name, ln_name, bias_name in (("qkv_w", "input_ln_w", "qkv_b"), ("o_w", None, None),
+                                     ("gateup_w", "post_ln_w", None), ("down_w", None, None)):
+        w = layers[name]
+        _, k, n = w.shape
+        x = (torch.randn((STREAM_B, k), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+        for fused in ((False, True) if ln_name else (False,)):
+            ln = layers[ln_name] if fused else None
+            bias = layers[bias_name] if bias_name else None
+
+            def walk(fn, ln=ln, bias=bias, x=x, w=w):  # bound now: the loop rebinds x and w
+                it = itertools.cycle(range(nl)).__next__
+                return lambda: fn(x, w, it(), ln_w=ln, bias=bias, eps=eps)
+
+            def library(ln=ln, bias=bias, k=k, x=x, w=w):
+                it = itertools.cycle(range(nl)).__next__
+
+                def call():
+                    i = it()
+                    xx = F.rms_norm(x, (k,), ln[i], eps) if ln is not None else x
+                    return F.linear(xx, w[i].t(), None if bias is None else bias[i])
+
+                return call
+
+            calls = "rms_norm + linear, two calls" if fused else "linear, one call"
+            cases.append(dict(
+                name="stream_matmul", path="stream", source="stream_matmul.cu", replaces="padt_tpu/ops/matmul.py:76",
+                tol=TOL, relative=True,
+                shape=f"{name} M={STREAM_B} x K={k} x N={n}{', rms_norm fused' if fused else ''}{', bias' if bias is not None else ''} "
+                      f"({nl} layers' weights in turn; library: {calls})",
+                kern=walk(MM.stream_matmul_stacked), plain=walk(MM.stream_matmul_stacked_ref), library=library(),
+                bound=(STREAM_B * k * 2 + k * n * 2 + (k * 2 if fused else 0) + (n * 2 if bias is not None else 0)
+                       + STREAM_B * n * 2, 2 * STREAM_B * n * k, BF16_TENSOR_FLOPS),
+            ))
+    return cases
+
+
+def phase_stream(dev, card):
+    """[stream]: `tools/micro_stream_matmul.py` at PaDT-3B, B = STREAM_B,
+    all 36 layers (K19's entry point): each variant's device ms and GB/s
+    per pass; H10 launched exactly 4 x 36 times by one pass of each stream
+    variant (the counts are differences around that eager pass) and never
+    by the torch variant; each variant's output no farther from the float32
+    loop than twice the torch variant's (the bf16 rounding over 36 layers is
+    the yardstick); then H10's kernel lines on the same weights. Returns the
+    entries and {"stream_matmul": launches of one stream pass}."""
+    from padt_tpu_torch import padt_3b
+    from padt_tpu_torch.ops import cuda_matmul
+    from padt_tpu_torch.tools import micro_stream_matmul as tool
+
+    tcfg = padt_3b().text
+    nl = tcfg.num_hidden_layers
+    cuda_matmul.reset_launch_counts()
+    layers = tool.make_layers(tcfg, dev)
+    res, _ = tool.run(tcfg, STREAM_B, dev, reps=10, layers=layers)
+    bound = res["weight_bytes"] / HBM_BYTES_PER_S * 1e3
+    for name in tool.VARIANTS:
+        log(f"[stream] {name}: {res[f'{name}_ms']:.4f} ms per {nl}-layer pass at B={STREAM_B}, "
+            f"{res[f'{name}_gbps']:.1f} GB/s over {res['weight_bytes'] / 1e9:.3f} GB of bf16 weights "
+            f"(bound {bound:.4f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s); H10 launches per pass {res[f'{name}_launches']}; "
+            f"max abs gap from the float32 loop {res[f'gap_f32_{name}']:.4f} ({card})")
+    log(f"[stream] max abs gap from the torch variant: stream {res['max_gap_stream']:.4f}, stream_noln "
+        f"{res['max_gap_stream_noln']:.4f}, of outputs up to {res['max_abs_torch']:.4f}")
+    want = {"torch": 0, "stream": 4 * nl, "stream_noln": 4 * nl}
+    if {k: res[f"{k}_launches"] for k in want} != want:
+        raise AssertionError(f"[stream] H10 launches per pass {[res[f'{k}_launches'] for k in want]}, expected {want}")
+    for name in ("stream", "stream_noln"):
+        if not res[f"gap_f32_{name}"] <= 2 * res["gap_f32_torch"]:
+            raise AssertionError(f"[stream] {name} is farther from the float32 loop than twice the torch variant: {res}")
+    entries = measure(_h10_cases(dev, layers, tcfg), card)
+    del layers
+    return entries, {"stream_matmul": res["stream_launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this smoke run needs an NVIDIA GPU")
     sys.path.insert(0, ROOT)
-    import padt_tpu_torch  # noqa: F401  (sets the float32 matmul/cuDNN flags)
+    import padt_tpu_torch  # sets the float32 matmul/cuDNN flags
+
+    t0 = [time.perf_counter()]
+
+    def stamp(what):  # host seconds of each phase, for the run's time budget
+        t = time.perf_counter()
+        log(f"[time] {what}: {t - t0[0]:.1f} s")
+        t0[0] = t
 
     dev = torch.device("cuda", 0)
     name, card = phase_device()
     entries = phase_kernels(dev, card)
+    stamp("build + kernel lines")
+    forms_counts = phase_forms(dev, card, padt_tpu_torch.padt_3b())
     phase_tiny_reference(dev)
     phase_tiny_train(dev)
+    stamp("forms + tiny references")
     cfg, model, proc = load_3b(dev)
     counts = phase_run_batch("slice", dev, card, cfg, model.params, proc)
     check_launches(cfg, counts)
-    serve_counts, forwards = phase_serve(dev, card, cfg, model, proc)
+    stamp("3B load + run_batch")
+    serve_counts, forwards, serve_base = phase_serve(dev, card, cfg, model, proc)
     check_serve_launches(cfg, serve_counts, forwards)
+    stamp("serve")
+    qi8_counts = phase_qi8(dev, card, cfg, model, proc, serve_base)
+    stamp("qi8")
     params = model.params
     del model, proc
     gc.collect()
@@ -1048,12 +1505,21 @@ def main() -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    stamp("train")
     h7_entries, counts_7b = phase_7b(dev, card)
     entries += h7_entries
+    gc.collect()
+    torch.cuda.empty_cache()
+    stamp("7b")
+    h10_entries, stream_counts = phase_stream(dev, card)
+    entries += h10_entries
+    stamp("stream")
     # each kernel's launches on its own path: the 3B run_batch for H1-H3, 3B
-    # serving for H4-H6, the 3B train steps for the training lines, the 7B
-    # runs for the 7B shapes and H7
-    paths = {"3b_batch": counts, "3b_serve": serve_counts, "train": train_counts, "7b": counts_7b}
+    # serving for H4-H6, the older KV forms' op-level run for K13-K18, the QI8
+    # serve runs for H4's QI8 mode, the 3B train steps for the training
+    # lines, the 7B runs for the 7B shapes and H7, one stream pass for H10
+    paths = {"3b_batch": counts, "3b_serve": serve_counts, "forms": forms_counts, "3b_qi8": qi8_counts,
+             "train": train_counts, "7b": counts_7b, "stream": stream_counts}
     for e in entries:
         e["launches"] = paths[e.pop("path")][e["name"]]
     print(json.dumps({"kernels": entries}), flush=True)

@@ -71,13 +71,10 @@ def _same_device(name: str, dev: torch.device, *ts) -> None:
             raise ValueError(f"{name}: tensors on different devices ({t.device} vs {dev})")
 
 
-def _no_graph_cut(name: str, *ts) -> None:
+def _no_graph_cut(name: str, *ts, hint: str = "call it through its autograd Function in padt_tpu_torch.ops.attention") -> None:
     """Raise for CUDA inputs that autograd would have to differentiate."""
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts):
-        raise RuntimeError(
-            f"{name}: inputs require grad, and the kernel's output would cut the autograd graph; "
-            "call it through its autograd Function in padt_tpu_torch.ops.attention"
-        )
+        raise RuntimeError(f"{name}: inputs require grad, and the kernel's output would cut the autograd graph; {hint}")
 
 
 def _vec_ok(t: torch.Tensor) -> bool:

@@ -8,6 +8,8 @@ Tolerance 2e-2 absolute on bf16 outputs of magnitude ~1: the kernels round
 to bf16 at other places than the fp32 twins (P before P.V, the output) and
 sum in another order."""
 
+import math
+
 import pytest
 import torch
 
@@ -233,6 +235,99 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(dev):
         K.store_kv_rows(k8, ks, v8, vs, *rows, pos.long(), pos)
 
 
+def _live_cache(g, dev, b, c, left=3):
+    """Per-slot live lengths at a sub-tile length, a 256-row tile edge, across
+    tiles, the full capacity and 0 (a slot with no live key); valid is the
+    live range after `left` rows of left padding."""
+    lens = torch.tensor([100, 256, 257, c, 0] + [int(x) for x in torch.randint(c // 2, c + 1, (max(b - 5, 0),), generator=g, device=dev)],
+                        dtype=torch.int32, device=dev)[:b].clamp(max=c)
+    cols = torch.arange(c, device=dev)[None, :]
+    return lens.contiguous(), (cols < lens[:, None].long()) & (cols >= left)
+
+
+@pytest.mark.parametrize("form,b,c", [("cache", 5, 197), ("cache", 16, 768), ("n_valid", 5, 512), ("n_valid", 96, 1280),
+                                      ("qi8", 5, 197), ("qi8", 16, 768), ("qi8", 96, 1280)])
+def test_int8_decode_forms_match_plain(dev, form, b, c):
+    """H4 without its fresh column (K13/K14: every valid pattern, a slot with
+    no valid key gives the V rows' mean), with an n_valid bound (K15: the
+    lengths of _live_cache, a slot with no live key gives 0), and with int8 x
+    int8 scores (K6 under PADT_DECODE_QI8, counted apart); at the test
+    sizes, the serve pool's and B = 96, C = 1280."""
+    from padt_tpu_torch.ops import cuda_kv as K
+
+    g = torch.Generator(device=dev).manual_seed(b + c)
+    nl, hkv, gq, hd, layer = 2, 2, 8, 128, 1
+    k8, ks, v8, vs, kn, ksn, vn, vsn = _int8_cache(g, dev, nl, b, hkv, c, hd, 1)
+    q = _randn(g, (b, hkv, gq, hd), dev)
+    fresh, nv, qi8 = (None,) * 4, None, form == "qi8"
+    valid = _valid_patterns(b, c, dev)
+    if form == "n_valid":
+        nv, valid = _live_cache(g, dev, b, c)
+    if qi8:
+        fresh = (kn, ksn, vn, vsn)
+    key = "int8_decode_attn_qi8" if qi8 else "int8_decode_attn"
+    n0 = K.launch_counts[key]
+    out = K.int8_decode_attn(q, k8, ks, v8, vs, *fresh, valid, layer, n_valid=nv, quantize_q=qi8)
+    torch.cuda.synchronize()
+    assert K.launch_counts[key] == n0 + 1
+    ref = K.int8_decode_attn_plain(q, k8, ks, v8, vs, *fresh, valid, layer, n_valid=nv, quantize_q=qi8)
+    assert _err(out, ref) < TOL
+    if qi8:  # within one bf16 ulp of the largest output, and far nearer its twin than the bf16-score twin
+        top = ref.float().abs().max().item()
+        assert _err(out, ref) <= 2.0 ** (math.floor(math.log2(top)) - 7)
+        bf16 = K.int8_decode_attn_plain(q, k8, ks, v8, vs, *fresh, valid, layer)
+        gap = lambda a, b: (a.float() - b.float()).abs().mean().item()
+        assert gap(out, ref) <= 0.25 * gap(out, bf16)
+    if form == "n_valid":
+        assert float(out[4].float().abs().max()) == 0.0  # no live key: 0, as K15
+    if form == "cache":
+        mean = (v8[layer, 3].float() * vs[layer, 3, :, :, None]).mean(dim=1)  # no valid key: uniform softmax
+        assert _err(out[3], mean[:, None].expand(hkv, gq, hd)) < TOL
+
+
+@pytest.mark.parametrize("b,c,kq", [(5, 197, 4), (8, 768, 32), (3, 131, 16), (5, 7, 4)])
+def test_int8_verify_without_fresh_matches_plain(dev, b, c, kq):
+    """H5 with the causal limit c <= write_pos + r % kq over a cache that
+    holds the new rows (K16): write_pos inside a tile, across a tile, at the
+    end of the capacity."""
+    from padt_tpu_torch.ops import cuda_kv as K
+
+    g = torch.Generator(device=dev).manual_seed(b * kq + c)
+    nl, hkv, gq, hd, layer = 2, 2, 8, 128, 0
+    k8, ks, v8, vs = _int8_cache(g, dev, nl, b, hkv, c, hd, 1)[:4]
+    q = _randn(g, (b, hkv, gq * kq, hd), dev)
+    wp = torch.tensor([max(c // 2, 0), 30, c - kq, 1, 0][:b] + [0] * max(b - 5, 0), dtype=torch.int32, device=dev).clamp(min=0)
+    valid = _valid_patterns(b, c, dev) | ((torch.arange(c, device=dev)[None, :] >= wp[:, None]) & (torch.arange(c, device=dev)[None, :] < wp[:, None] + kq))
+    out = K.int8_verify_attn(q, k8, ks, v8, vs, None, None, None, None, valid, layer, kq, write_pos=wp)
+    torch.cuda.synchronize()
+    ref = K.int8_verify_attn_plain(q, k8, ks, v8, vs, None, None, None, None, valid, layer, kq, write_pos=wp)
+    assert _err(out, ref) < TOL
+
+
+@pytest.mark.parametrize("kq", [1, 32])
+def test_single_layer_stores_match_the_cpu(dev, kq):
+    """K17 / K18 through `ops.kv_cache` (one-layer views of an unstacked
+    cache and of layer 2 of a stack): byte-identical to the same calls on the
+    CPU, positions inside a tile, straddling 32-row tiles and at C - kq."""
+    from padt_tpu_torch.ops import kv_cache as KC
+
+    g = torch.Generator(device=dev).manual_seed(kq)
+    nl, b, hkv, c, hd = 3, 4, 2, 128, 128
+    cache = _int8_cache(g, dev, nl, b, hkv, c, hd, kq)
+    pos = torch.tensor([3, 30, 64, c - kq], dtype=torch.int32, device=dev)
+    store = KC.store_kv_rows if kq == 1 else KC.store_kv_rows_k
+    for layer in (None, 2):
+        base = [t[0] if layer is None else t for t in cache[:4]]
+        got = [t.clone() for t in base]
+        ref = [t.cpu().clone() for t in base]
+        out = store(*got, *cache[4:], pos, layer=layer)
+        torch.cuda.synchronize()
+        assert all(o is t for o, t in zip(out, got))  # in place
+        store(*ref, *(t.cpu() for t in cache[4:]), pos.cpu(), layer=layer)
+        for a, r in zip(got, ref):
+            assert torch.equal(a.cpu(), r)
+
+
 # ---------------------------------------------------------------------------
 # H7 int8_matmul vs its twin in padt_tpu_torch.ops.quant
 # ---------------------------------------------------------------------------
@@ -292,6 +387,80 @@ def test_int8_matmul_refuses_what_the_kernel_does_not_take(dev):
         quant.int8_matmul(x[:, :60], wq[:60, :40], s[:40])
     with pytest.raises(ValueError, match="without a copy"):
         quant.int8_matmul(torch.zeros((4, 2, 64), dtype=torch.bfloat16, device=dev).transpose(0, 1), wq, s)
+
+
+# ---------------------------------------------------------------------------
+# H10 stream_matmul vs its plain version in padt_tpu_torch.ops.matmul
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "m,k,n,fuse,bias",
+    [(96, 2048, 2560, True, True), (96, 2048, 2048, False, False), (96, 2048, 22016, True, False),
+     (96, 11008, 2048, False, False), (5, 96, 256, True, True), (130, 160, 96, True, False), (300, 200, 48, False, True)],
+)
+def test_stream_matmul_matches_plain(dev, m, k, n, fuse, bias):
+    """The four PaDT-3B decode products at M = 96 (split-K 8, 8, 1 and 16),
+    the tiny model's widths, M past one 128-row tile, K = 200 not a multiple
+    of the 32-wide K step. Tolerance 2e-2 relative to the output's largest
+    magnitude: bf16 output rounding and another order of sums."""
+    from padt_tpu_torch.ops import cuda_matmul as CM
+    from padt_tpu_torch.ops import matmul as MM
+
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    nl, li = 3, 2
+    x = _randn(g, (m, k), dev)
+    w = _randn(g, (nl, k, n), dev, scale=k**-0.5)
+    ln = (1.0 + torch.randn((nl, k), generator=g, device=dev) * 0.1).to(torch.bfloat16) if fuse else None
+    b = _randn(g, (nl, n), dev, scale=0.1) if bias else None
+    n0 = CM.launch_counts["stream_matmul"]
+    out = MM.stream_matmul_stacked(x, w, li, ln_w=ln, bias=b)
+    torch.cuda.synchronize()
+    assert CM.launch_counts["stream_matmul"] == n0 + 1
+    ref = MM.stream_matmul_stacked_ref(x, w, li, ln_w=ln, bias=b)
+    assert out.shape == (m, n) and out.dtype == torch.bfloat16
+    assert _err(out, ref) <= 2e-2 * ref.float().abs().max().item()
+
+
+def test_stream_matmul_layer_tensor_strided_rows_and_refusals(dev):
+    """A 0-d tensor layer index, (B, 1, K) rows as a strided view, and the
+    shapes the kernel refuses."""
+    from padt_tpu_torch.ops import matmul as MM
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    w = _randn(g, (2, 128, 64), dev, scale=0.1)
+    buf = _randn(g, (9, 1, 384), dev)
+    x = buf[..., 128:256]
+    out = MM.stream_matmul_stacked(x, w, torch.tensor(1, device=dev))
+    torch.cuda.synchronize()
+    assert out.shape == (9, 1, 64)
+    assert torch.equal(out, MM.stream_matmul_stacked(x.contiguous(), w, 1))
+    with pytest.raises(ValueError, match="bf16"):
+        MM.stream_matmul_stacked(x.float(), w, 0)
+    with pytest.raises(ValueError, match="out of range"):
+        MM.stream_matmul_stacked(x, w, 2)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        MM.stream_matmul_stacked(x[..., :60], w[:, :60], 0)
+
+
+def test_stream_matmul_refuses_inputs_that_require_grad(dev):
+    """H10 has no backward: with grad mode on it raises on x, w, ln_w or bias
+    that require grad (the raw-pointer output would cut the graph); under
+    no_grad it runs."""
+    from padt_tpu_torch.ops import matmul as MM
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    x, w = _randn(g, (4, 128), dev), _randn(g, (2, 128, 64), dev, scale=0.1)
+    ln, b = torch.ones((2, 128), dtype=torch.bfloat16, device=dev), torch.zeros((2, 64), dtype=torch.bfloat16, device=dev)
+    for i in range(4):
+        args = [x, w, ln, b]
+        args[i] = args[i].clone().requires_grad_()
+        with pytest.raises(RuntimeError, match="cut the autograd graph"):
+            MM.stream_matmul_stacked(args[0], args[1], 1, ln_w=args[2], bias=args[3])
+        with torch.no_grad():
+            out = MM.stream_matmul_stacked(args[0], args[1], 1, ln_w=args[2], bias=args[3])
+        torch.cuda.synchronize()
+        assert torch.equal(out, MM.stream_matmul_stacked(x, w, 1, ln_w=ln, bias=b))
 
 
 # ---------------------------------------------------------------------------

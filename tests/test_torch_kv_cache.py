@@ -177,8 +177,11 @@ def test_cpu_calls_take_the_twins_and_unported_forms_raise():
     fresh = tuple(T(t[k]) for k in ("k8n", "ksn", "v8n", "vsn"))
     TK.decode_attention_int8(q, *args, layer=0, fresh_kv=fresh)
     assert all(n == 0 for n in cuda_kv.launch_counts.values())  # a twin is no launch
+    TK.decode_attention_int8(q, *args, layer=0, fresh_kv=fresh, quantize_q=True)
+    assert all(n == 0 for n in cuda_kv.launch_counts.values())
+    # quantize_q stays refused where JAX refuses it: without fresh_kv, and in the multi-query form
     with pytest.raises(NotImplementedError, match="quantize_q"):
-        TK.decode_attention_int8(q, *args, layer=0, fresh_kv=fresh, quantize_q=True)
+        TK.decode_attention_int8(q, *args, layer=0, quantize_q=True)
     with pytest.raises(NotImplementedError, match="quantize_q"):
         TK.decode_attention_int8_multi(q, *args, torch.zeros(2, dtype=torch.int32), layer=0, fresh_kv=fresh, quantize_q=True)
     with pytest.raises(ValueError, match="unsupported device"):
