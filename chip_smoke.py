@@ -18,7 +18,9 @@ one process per source, into build/padt_tpu_torch/), then:
      peak rate of their type); the int8 KV forms beside the serve path's
      (K13-K18, H4 without its fresh column or with n_valid, H5 with the
      causal limit, H6 into one layer) and H4's int8 x int8 score mode
-     (PADT_DECODE_QI8) among them;
+     (PADT_DECODE_QI8) among them; H2's vision lines are held to 2e-2 of
+     their largest output; [gqa]: H2 at its GQA shapes against one kv head
+     per query head, warm and from HBM (logged);
   3. [forms]: drives the older forms through `ops.kv_cache` (store-then-
      attend over the 36 layers, unstacked and layer=, n_valid) with the
      launch counters reset before and read after, exact launches, and holds
@@ -76,7 +78,8 @@ one process per source, into build/padt_tpu_torch/), then:
      pass, exactly 4 x 36 H10 launches per pass, each output as close to the
      float32 loop as twice the torch variant's; then H10's kernel lines at
      the four products, fused and unfused;
- 11. prints the kernels' JSON line, then the result line
+ 11. prints the yardstick lines' JSON (a layout no path runs yet, launches
+     0), the kernels' JSON line, then the result line
      {"ok": true, "device": {...}} last.
 Any failure raises, and the script exits non-zero without the result line.
 It needs CUDA; it imports nothing of JAX and nothing of the JAX package.
@@ -547,6 +550,7 @@ def phase_kernels(dev, card):
     vqr, vkr = C.rope_qk(vq, vk, vcos, vsin, h, h)
     u = lambda t: t.unflatten(-1, (h, hd))
     full_pairs, full_mask = _visible_pairs(seg_full, seg_full, False)
+    seg_win_pairs, seg_win_mask = _visible_pairs(seg_win, seg_win, False)
     win = torch.arange(s, device=dev) // C.WINDOW
     win_mask = (win[:, None] == win[None, :])[None] & (seg_win[:, None, :] >= 0)
     win_pairs = int(win_mask.sum())
@@ -559,8 +563,10 @@ def phase_kernels(dev, card):
              kern=lambda: C.rope_qk(vq, vk, vcos, vsin, h, h), plain=lambda: C.rope_qk_plain(vq, vk, vcos, vsin, h, h),
              bound=(2 * nbytes(vq, vk) + nbytes(vcos, vsin), 3 * 2 * vq.numel(), FP32_FLOPS)),
         *_text_cases(dev, rnd, 2, c3.num_attention_heads, c3.num_key_value_heads, c3.head_dim, "3b_batch", ""),
-        dict(name="segment_flash_fwd", path="3b_batch", source="segment_flash.cu", replaces="padt_tpu/ops/pallas_attention.py:769", tol=TOL,
-             shape="vision full layer 2x2304x16x80 on seg_full",
+        # H2's vision lines: outputs of ~1e-2 (a row averages ~2116 keys, or ~64 in a window), so the
+        # tolerance is TOL times the largest reference output, a few bf16 ulp: one dropped key tile fails it
+        dict(name="segment_flash_fwd", path="3b_batch", source="segment_flash.cu", replaces="padt_tpu/ops/pallas_attention.py:769",
+             tol=TOL, relative=True, shape="vision full layer 2x2304x16x80 on seg_full",
              kern=lambda: C.segment_flash_fwd(u(vqr), u(vkr), u(vv), seg_full, seg_full, False, hd**-0.5),
              plain=lambda: C.segment_flash_plain(u(vqr), u(vkr), u(vv), seg_full, seg_full, False, hd**-0.5),
              library=_sdpa(u(vqr), u(vkr), u(vv), full_mask[:, None], hd**-0.5),
@@ -571,6 +577,14 @@ def phase_kernels(dev, card):
              plain=lambda: C.window_slot_plain(u(vqr), u(vkr), u(vv), seg_win, hd**-0.5),
              library=_sdpa(u(vqr), u(vkr), u(vv), win_mask[:, None], hd**-0.5),
              bound=(vis_bytes, 4 * hd * h * win_pairs, BF16_TENSOR_FLOPS)),
+        # H2 on the window layout, the segment-tile skip's yardstick (it visits 1 of 18 key tiles per
+        # query tile); no path runs H2 on seg_win yet (run_batch's window layers take H3): path None
+        dict(name="segment_flash_fwd", path=None, source="segment_flash.cu", replaces="padt_tpu/ops/pallas_attention.py:769",
+             tol=TOL, relative=True, shape="vision windowed layer 2x2304x16x80 on seg_win, segment-tile skip",
+             kern=lambda: C.segment_flash_fwd(u(vqr), u(vkr), u(vv), seg_win, seg_win, False, hd**-0.5),
+             plain=lambda: C.segment_flash_plain(u(vqr), u(vkr), u(vv), seg_win, seg_win, False, hd**-0.5),
+             library=_sdpa(u(vqr), u(vkr), u(vv), seg_win_mask[:, None], hd**-0.5),
+             bound=(vis_bytes, 4 * hd * h * seg_win_pairs, BF16_TENSOR_FLOPS)),
         *_int8_attn_cases(dev, g, rnd, c3.num_hidden_layers, KV_SLOTS, c3.num_key_value_heads,
                           c3.num_attention_heads // c3.num_key_value_heads, c3.head_dim, KV_CAP, "3b_serve", "", True),
         # the older int8 KV forms (K13-K18) and the QI8 score mode at the serve pool's shape, K15 at B = 96, C = 1280
@@ -586,6 +600,43 @@ def phase_kernels(dev, card):
                       names=("flash_bwd_dkv",)),
     ]
     return measure(cases, card)
+
+
+def phase_gqa(dev, card):
+    """[gqa]: the measurement behind H2's one query head per work item
+    (segment_flash.cu's note on GQA). Packing the G query heads of a kv head
+    into one 128-row item (16 positions x G = 8 heads) streams as many K/V
+    tiles per item over as many items as one head of 128 positions does, so
+    it could save only distinct K/V bytes. H2 runs here at the main path's
+    GQA shapes with their kv heads (G = 8 or 7; the G items of a kv head run
+    side by side and share its tiles through L2) and with one kv head per
+    query head (G = 1: G times the distinct K/V bytes, the same tiles per
+    item), warm (the same inputs every call, K/V in L2 as after the rope
+    kernel on the main path) and cold (a walk over copies of K/V three times
+    the L2, so every call reads them from HBM). Logged, not held."""
+    from padt_tpu_torch.ops import cuda_attention as C
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    rnd = lambda *shape: (torch.randn(shape, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    hd = 128
+    for what, b, l, h, hkv, lse in (("3B prefill", 2, PROMPT_LEN, 16, 2, False),  # the kernel lines' 3B prefill bucket
+                                    ("3B train step, with its LSE", TRAIN_BATCH, TRAIN_LEN, 16, 2, True),
+                                    ("7B prefill", BATCH, PROMPT_LEN, 28, 4, False)):
+        pos = torch.arange(l, device=dev)[None].expand(b, l) - torch.tensor([[100]] + [[0]] * (b - 1), device=dev)
+        seg = ((pos >= 0).int() - 1).contiguous()
+        q = rnd(b, l, h, hd)
+        ms = {}
+        for n_kv in (hkv, h):
+            copies = max(2, math.ceil(L2_WALK_BYTES / (4 * b * l * n_kv * hd)))
+            kvs = [(rnd(b, l, n_kv, hd), rnd(b, l, n_kv, hd)) for _ in range(copies)]
+            walk = itertools.cycle(kvs)
+            call = lambda kv: C.segment_flash_fwd(q, *kv, seg, seg, True, hd**-0.5, return_lse=lse)
+            ms[n_kv] = (cuda_ms(lambda: call(kvs[0])), cuda_ms(lambda: call(next(walk))))
+            del kvs, walk
+        (w8, c8), (w1, c1) = ms[hkv], ms[h]
+        log(f"[gqa] H2 {what} causal {b}x{l}, {h} q heads x{hd}: G = {h // hkv} ({hkv} kv heads) warm {w8:.4f} ms, "
+            f"cold {c8:.4f} ms; G = 1 ({h} kv heads, {h // hkv}x the K/V bytes) warm {w1:.4f} ms, cold {c1:.4f} ms "
+            f"({card})")
 
 
 def _u8_image(seed):
@@ -1484,6 +1535,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     name, card = phase_device()
     entries = phase_kernels(dev, card)
+    phase_gqa(dev, card)
     stamp("build + kernel lines")
     forms_counts = phase_forms(dev, card, padt_tpu_torch.padt_3b())
     phase_tiny_reference(dev)
@@ -1520,9 +1572,15 @@ def main() -> int:
     # lines, the 7B runs for the 7B shapes and H7, one stream pass for H10
     paths = {"3b_batch": counts, "3b_serve": serve_counts, "forms": forms_counts, "3b_qi8": qi8_counts,
              "train": train_counts, "7b": counts_7b, "stream": stream_counts}
+    kernels, yardsticks = [], []
     for e in entries:
-        e["launches"] = paths[e.pop("path")][e["name"]]
-    print(json.dumps({"kernels": entries}), flush=True)
+        path = e.pop("path")
+        if path is None:  # a layout no path runs yet: timed and checked, launched 0 times on the main paths
+            yardsticks.append({**e, "launches": 0})
+        else:
+            kernels.append({**e, "launches": paths[path][e["name"]]})
+    log(json.dumps({"yardsticks": yardsticks}))
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

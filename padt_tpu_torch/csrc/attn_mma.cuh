@@ -1,5 +1,5 @@
-// Shared pieces of the two attention kernels (segment_flash.cu,
-// window_attn.cu): bf16 tiles in shared memory, mma.sync m16n8k16 with fp32
+// Shared pieces of the mma.sync attention kernels (window_attn.cu,
+// flash_bwd.cu): bf16 tiles in shared memory, mma.sync m16n8k16 with fp32
 // accumulation, and one online-softmax step over a 64-key tile.
 //
 // CTA shape: 4 warps, 64 query rows (16 per warp), 64 keys per tile. Each

@@ -79,7 +79,9 @@ class InferenceEngine:
         self.params = params
         self.cfg = cfg
         self.processor = processor
-        self.compact_pixels = compact_pixels
+        # PADT_COMPACT_PIXELS=0 restores the f32 row format, as in the JAX
+        # engine; the choice stays on the engine (the processor is shared)
+        self.compact_pixels = compact_pixels and os.environ.get("PADT_COMPACT_PIXELS", "1") == "1"
         self.max_new_tokens = max_new_tokens
         side = int(cfg.max_image_patches**0.5) + 1
         self.canvas_hw = canvas_hw or (side, side)

@@ -3,7 +3,8 @@
 | wrapper             | CUDA source             | replaces (padt_tpu/ops/pallas_attention.py) |
 |---------------------|-------------------------|---------------------------------------------|
 | `rope_qk`           | csrc/rope_qk.cu         | `_unpack_rope_kernel`, `_rope_pair_kernel`  |
-| `segment_flash_fwd` | csrc/segment_flash.cu   | `_vis_fwd_kernel`, `_fwd_kernel`            |
+| `segment_flash_fwd` | csrc/segment_flash.cu   | `_vis_fwd_kernel`, `_fwd_kernel`, and the   |
+|                     |                         | k-block skip `_kblock_ranges`               |
 | `window_slot_attn`  | csrc/window_attn.cu     | `_vis_win_kernel`                           |
 
 Each wrapper takes the plain PyTorch twin beside it (`*_plain`) for tensors
@@ -200,6 +201,43 @@ def segment_flash_plain(q, k, v, q_seg, k_seg, causal: bool, scale: float, retur
     return out, torch.where(torch.isfinite(lse), lse, torch.full_like(lse, BIG_LSE))
 
 
+def segment_tiles_plain(q_seg, k_seg, blk_q: int, blk_k: int, causal: bool) -> torch.Tensor:
+    """(B, n_qb, n_kb) bool: the key tiles of `blk_k` keys that H2 visits for
+    each tile of `blk_q` queries (the kernel's rule at 128 and 128, in
+    PyTorch; the kernel decides in its producer warps and never calls this).
+    A key tile is live if the interval [lowest, highest] of its valid (>= 0)
+    segment ids meets the query tile's, and, when causal, its first key is
+    not after the query tile's last row: JAX's per-block test in
+    `_kblock_ranges`, without the closure into one [lo, hi) range. Rows past
+    the sequence count as segment -1. Every visible (query, key) pair lies in
+    a live tile, and the live tiles of a query tile lie in JAX's [lo, hi)."""
+    b, sq = q_seg.shape
+    sk = k_seg.shape[1]
+    n_qb, n_kb = -(-sq // blk_q), -(-sk // blk_k)
+
+    def lo_hi(seg, n, blk):
+        tiles = torch.nn.functional.pad(seg, (0, n * blk - seg.shape[1]), value=-1).reshape(b, n, blk)
+        lo = torch.where(tiles >= 0, tiles, torch.full_like(tiles, 2**30)).amin(-1)  # no valid id: 2**30
+        return lo, tiles.amax(-1)  # no valid id: -1
+
+    (qlo, qhi), (klo, khi) = lo_hi(q_seg, n_qb, blk_q), lo_hi(k_seg, n_kb, blk_k)
+    live = (khi[:, None, :] >= qlo[:, :, None]) & (klo[:, None, :] <= qhi[:, :, None])
+    if causal:
+        first_key = torch.arange(n_kb, device=q_seg.device) * blk_k
+        last_row = (torch.arange(n_qb, device=q_seg.device) + 1) * blk_q - 1
+        live &= (first_key[None, :] <= last_row[:, None])[None]
+    return live
+
+
+def _tma_strides(t: torch.Tensor) -> Tuple[int, int, int]:
+    """(batch, seq, head) element strides of a (B, S, H, hd) view for a TMA
+    descriptor: a dimension of size 1 is never stepped, so its stride, which
+    PyTorch leaves arbitrary, is taken as contiguous."""
+    b, s, h, d = t.shape
+    inner = (s * h * d, h * d, d)
+    return tuple(inner[i] if t.shape[i] == 1 else t.stride(i) for i in range(3))
+
+
 def segment_flash_fwd(
     q: torch.Tensor,  # (B, Sq, H, hd)
     k: torch.Tensor,  # (B, Sk, Hkv, hd)
@@ -236,9 +274,7 @@ def segment_flash_fwd(
     rc = lib.padt_segment_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg.data_ptr(), k_seg.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), b, sq, sk, h, hkv, hd,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
+        *_tma_strides(q), *_tma_strides(k), *_tma_strides(v),
         int(causal), float(scale), _stream(q),
     )
     check(lib, name, rc)

@@ -98,6 +98,110 @@ def test_segment_flash_cross_lengths_and_strided_views(dev):
     assert _err(out, ref) < TOL
 
 
+def _lse_close(lse, ref_lse):
+    """The same rows see no key (LSE 1e30), the others within 1e-3 (fp32
+    log-sum-exp of bf16 scores)."""
+    empty = ref_lse >= 1e29
+    assert torch.equal(lse >= 1e29, empty)
+    assert not (~empty).any() or (lse - ref_lse)[~empty].abs().max().item() < 1e-3
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_segment_flash_lse_every_head_dim(dev, hd, causal):
+    """The LSE output against the twin's at every head dim, causal and not,
+    with left padding, a row of batch that is all padding, and S = 333 (not
+    a multiple of the 128-row tile)."""
+    g = torch.Generator(device=dev).manual_seed(100 + hd)
+    b, s, h, hkv = 3, 333, 4, 2
+    q = _randn(g, (b, s, h, hd), dev)
+    k, v = _randn(g, (b, s, hkv, hd), dev), _randn(g, (b, s, hkv, hd), dev)
+    seg = torch.zeros((b, s), dtype=torch.int32, device=dev)
+    seg[0, :150] = -1  # the first 128-row query tile sees no key at all
+    seg[1, 200:] = 1
+    seg[2] = -1
+    out, lse = C.segment_flash_fwd(q, k, v, seg, seg, causal, hd**-0.5, return_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = C.segment_flash_plain(q, k, v, seg, seg, causal, hd**-0.5, return_lse=True)
+    assert _err(out, ref) < TOL
+    _lse_close(lse, ref_lse)
+    assert float(out[seg < 0].float().abs().max()) == 0.0 and bool((lse.transpose(1, 2)[seg < 0] >= 1e29).all())
+
+
+@pytest.mark.parametrize("hd", [80, 16])
+def test_segment_flash_window_slots(dev, hd):
+    """H2 over the window-slot layout (seg_win: most key tiles skipped), q/k/v
+    as head views of one fused qkv buffer, against the twin, and on the
+    valid rows against H3."""
+    g = torch.Generator(device=dev).manual_seed(7 + hd)
+    b, h = 2, 4
+    geo = vision_geometry([(1, 46, 46), (1, 20, 28)], 2304)
+    assert geo.pack_index is not None
+    seg = torch.as_tensor(geo.seg_win, device=dev)
+    s = seg.shape[1]
+    qkv = _randn(g, (b, s, 3 * h * hd), dev)
+    q, k, v = (qkv[..., i * h * hd : (i + 1) * h * hd].unflatten(-1, (h, hd)) for i in range(3))
+    out, lse = C.segment_flash_fwd(q, k, v, seg, seg, False, hd**-0.5, return_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = C.segment_flash_plain(q, k, v, seg, seg, False, hd**-0.5, return_lse=True)
+    assert _err(out, ref) < TOL
+    _lse_close(lse, ref_lse)
+    valid = seg >= 0  # H3 masks keys only: its pad rows are not 0
+    assert _err(out[valid], C.window_slot_attn(q, k, v, seg, hd**-0.5)[valid]) < TOL
+
+
+@pytest.mark.parametrize("sq,sk,causal", [(333, 333, True), (100, 203, False), (203, 77, False), (1, 300, False), (129, 129, True)])
+def test_segment_flash_ragged_lengths(dev, sq, sk, causal):
+    """Sq and Sk not multiples of 128, Sq != Sk, one query row; multi-segment
+    rows with padding at both ends."""
+    g = torch.Generator(device=dev).manual_seed(sq + sk)
+    b, h, hkv, hd = 2, 4, 1, 64
+    q = _randn(g, (b, sq, h, hd), dev)
+    k, v = _randn(g, (b, sk, hkv, hd), dev), _randn(g, (b, sk, hkv, hd), dev)
+    segs = [torch.sort(torch.randint(0, 3, (b, n), generator=g, device=dev), dim=1).values.int() for n in (sq, sk)]
+    for sg in segs:
+        sg[0, : sg.shape[1] // 5] = -1
+        sg[1, sg.shape[1] - sg.shape[1] // 7 :] = -1
+    out, lse = C.segment_flash_fwd(q, k, v, segs[0], segs[1], causal, hd**-0.5, return_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = C.segment_flash_plain(q, k, v, segs[0], segs[1], causal, hd**-0.5, return_lse=True)
+    assert out.shape == (b, sq, h, hd)
+    assert _err(out, ref) < TOL
+    _lse_close(lse, ref_lse)
+
+
+def test_segment_flash_beyond_the_summary_table(dev):
+    """B * (query tiles + key tiles) = 72 * 16 past the kernel's table of 1024
+    tile summaries: its producer then summarises each tile as it goes."""
+    g = torch.Generator(device=dev).manual_seed(72)
+    b, s, h, hd = 72, 1024, 1, 64
+    q, k, v = (_randn(g, (b, s, h, hd), dev) for _ in range(3))
+    seg = torch.sort(torch.randint(0, 3, (b, s), generator=g, device=dev), dim=1).values.int()
+    seg[::3, :300] = -1
+    out, lse = C.segment_flash_fwd(q, k, v, seg, seg, True, hd**-0.5, return_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = C.segment_flash_plain(q, k, v, seg, seg, True, hd**-0.5, return_lse=True)
+    assert _err(out, ref) < TOL
+    _lse_close(lse, ref_lse)
+
+
+@pytest.mark.parametrize("h,hkv", [(28, 4), (16, 2)])
+def test_segment_flash_gqa_groups(dev, h, hkv):
+    """GQA at G = 7 (PaDT-7B) and G = 8 (PaDT-3B): causal prefill of 640 with
+    left padding; each query head reads its own kv head."""
+    g = torch.Generator(device=dev).manual_seed(h)
+    b, s, hd = 2, 640, 128
+    q = _randn(g, (b, s, h, hd), dev)
+    k, v = _randn(g, (b, s, hkv, hd), dev), _randn(g, (b, s, hkv, hd), dev)
+    seg = torch.zeros((b, s), dtype=torch.int32, device=dev)
+    seg[0, :100] = -1
+    out, lse = C.segment_flash_fwd(q, k, v, seg, seg, True, hd**-0.5, return_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = C.segment_flash_plain(q, k, v, seg, seg, True, hd**-0.5, return_lse=True)
+    assert _err(out, ref) < TOL
+    _lse_close(lse, ref_lse)
+
+
 @pytest.mark.parametrize("hd", [16, 80, 128])
 def test_window_slot_matches_plain(dev, hd):
     g = torch.Generator(device=dev).manual_seed(hd)
