@@ -19,8 +19,13 @@ one process per source, into build/padt_tpu_torch/), then:
      (K13-K18, H4 without its fresh column or with n_valid, H5 with the
      causal limit, H6 into one layer) and H4's int8 x int8 score mode
      (PADT_DECODE_QI8) among them; H2's vision lines are held to 2e-2 of
-     their largest output; [gqa]: H2 at its GQA shapes against one kv head
-     per query head, warm and from HBM (logged);
+     their largest output; H8 / H9 each output to 2e-2 of its own largest
+     value and to a relative norm gap of 1e-2; [gqa]: H2 at its GQA shapes against one kv head
+     per query head, warm and from HBM (logged); [ptxas]: the registers and
+     spill bytes of every H8 / H9 instance from the build's ptxas report (a
+     spill fails the run); [bwd]: per shape, H8 + H9 against SDPA's whole
+     backward, and H8 / H9 over the vision layouts (seg_full and seg_win,
+     q/k/v views of the fused qkv) as yardsticks;
   3. [forms]: drives the older forms through `ops.kv_cache` (store-then-
      attend over the 36 layers, unstacked and layer=, n_valid) with the
      launch counters reset before and read after, exact launches, and holds
@@ -78,8 +83,10 @@ one process per source, into build/padt_tpu_torch/), then:
      pass, exactly 4 x 36 H10 launches per pass, each output as close to the
      float32 loop as twice the torch variant's; then H10's kernel lines at
      the four products, fused and unfused;
- 11. prints the yardstick lines' JSON (a layout no path runs yet, launches
-     0), the kernels' JSON line, then the result line
+ 11. prints the yardstick lines' JSON (layouts and shapes no path runs
+     yet: H2 over seg_win, H8 / H9 at PaDT-7B's heads and over seg_full
+     and seg_win; launches 0), the kernels'
+     JSON line, then the result line
      {"ok": true, "device": {...}} last.
 Any failure raises, and the script exits non-zero without the result line.
 It needs CUDA; it imports nothing of JAX and nothing of the JAX package.
@@ -100,6 +107,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL = 2e-2  # bf16 outputs of magnitude ~1: output rounding + sum order
+NORM_TOL = 1e-2  # H8/H9: ||kernel - twin|| / ||twin|| of each output (bf16 rounding of p, ds and the output)
 APART = 0.25  # a mode's kernel: its mean abs gap from its twin at most this share of its gap from another mode's twin
 TINY_REL_TOL = 5e-2  # tiny model in bf16 with kernels vs float32 plain path
 TINY_GRAD_REL_TOL = 0.1  # each trainable leaf's gradient, relative norm, bf16 card vs float32 CPU
@@ -220,13 +228,21 @@ def measure(cases, card):
             out, ref = c["view"](out), c["view"](ref)
         outs = out if isinstance(out, (tuple, list)) else (out,)
         refs = ref if isinstance(ref, (tuple, list)) else (ref,)
-        err = max((a.float() - r.float()).abs().max().item() for a, r in zip(outs, refs))
-        top = max(r.float().abs().max().item() for r in refs)
-        tol = c["tol"] * (top if c.get("relative") else 1.0)
+        # each output against its own largest value, so a small output (dk beside dv) is not held to the other's
+        errs = [(a.float() - r.float()).abs().max().item() for a, r in zip(outs, refs)]
+        tops = [r.float().abs().max().item() for r in refs]
+        tols = [c["tol"] * (t if c.get("relative") else 1.0) for t in tops]
         if c.get("ulp"):  # one bf16 ulp of the largest output: the kernel rounds as its twin does
-            tol = bf16_ulp(top)
-        if not err <= tol:
-            raise AssertionError(f"{c['name']} [{c['shape']}]: max abs err {err} > {tol}")
+            tols = [bf16_ulp(t) for t in tops]
+        for i, (e, t) in enumerate(zip(errs, tols)):
+            if not e <= t:
+                raise AssertionError(f"{c['name']} [{c['shape']}]: output {i}: max abs err {e} > {t}")
+        err, tol_txt = max(errs), " / ".join(f"{e:.3e} (tol {t:.3e})" for e, t in zip(errs, tols))
+        if c.get("norm"):  # and the whole output: errors in the small late keys and rows count too
+            gaps = [((a.float() - r.float()).norm() / r.float().norm().clamp(min=1e-30)).item() for a, r in zip(outs, refs)]
+            tol_txt += ", relative norm gap " + " / ".join(f"{x:.3e}" for x in gaps) + f" (tol {NORM_TOL:.0e})"
+            if not all(x <= NORM_TOL for x in gaps):
+                raise AssertionError(f"{c['name']} [{c['shape']}]: relative norm gaps {gaps} > {NORM_TOL}")
         if "apart" in c:  # a twin of another mode, which the kernel must not be mistaken for
             near, far = mean_abs_gap(outs[0], refs[0]), mean_abs_gap(outs[0], c["apart"]())
             differ, at, ulps = worst_gap(outs[0], refs[0])
@@ -239,7 +255,7 @@ def measure(cases, card):
         lib_ms = cuda_ms(c["library"]) if c.get("library") else None  # a yardstick: the port never calls it
         b_ms, b_by = bound_ms(*c["bound"])
         lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
-        log(f"[kernel] {c['name']} [{c['shape']}]: max_abs_err {err:.3e} (tol {tol:.3e}), kernel {ms:.4f} ms, "
+        log(f"[kernel] {c['name']} [{c['shape']}]: max_abs_err {tol_txt}, kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, library {lib_txt}, bound {b_ms:.4f} ms ({b_by}) ({card})")
         entries.append({
             "name": c["name"], "route": "cuda", "source": f"padt_tpu_torch/csrc/{c['source']}",
@@ -464,13 +480,15 @@ def _text_cases(dev, rnd, b, h, hkv, hd, path, tag):
     ]
 
 
-def _train_cases(dev, rnd, b, l, h, hkv, hd, tag, names=("segment_flash_fwd", "rope_qk", "flash_bwd_dq", "flash_bwd_dkv")):
+def _train_cases(dev, rnd, b, l, h, hkv, hd, tag, names=("segment_flash_fwd", "rope_qk", "flash_bwd_dq", "flash_bwd_dkv"),
+                 path="train"):
     """The train step's text-layer kernels on a causal GQA bucket of `b`
     rows of `l` tokens, row 0 left-padded by 100 tokens: H2 with its LSE,
     H1 with the sin negated (the rope's VJP), H8 and H9 from that LSE and
     delta. The yardstick of H8 and H9 is the backward of
     scaled_dot_product_attention (the same boolean mask, enable_gqa), timed
-    as torch.autograd.grad on its output without the forward."""
+    as torch.autograd.grad on its output without the forward. `path` None
+    makes the lines yardsticks (a shape no path trains)."""
     import torch.nn.functional as F
 
     from padt_tpu_torch.ops import cuda_attention as C
@@ -497,30 +515,98 @@ def _train_cases(dev, rnd, b, l, h, hkv, hd, tag, names=("segment_flash_fwd", "r
     finite_lse = lambda r: (r[0], torch.where(r[1] >= 1e29, torch.zeros_like(r[1]), r[1]))
     cases = {
         "segment_flash_fwd": dict(
-            name="segment_flash_fwd", path="train", source="segment_flash.cu", replaces="padt_tpu/ops/pallas_attention.py:65",
+            name="segment_flash_fwd", path=path, source="segment_flash.cu", replaces="padt_tpu/ops/pallas_attention.py:65",
             tol=TOL, shape=shape + ", with its LSE", view=finite_lse,
             kern=lambda: C.segment_flash_fwd(q, k, v, seg, seg, True, scale, return_lse=True),
             plain=lambda: C.segment_flash_plain(q, k, v, seg, seg, True, scale, return_lse=True),
             library=_sdpa(q, k, v, mask[:, None], scale, gqa=True),
             bound=(2 * nbytes(q) + nbytes(k, v, seg, lse), 4 * hd * h * pairs, BF16_TENSOR_FLOPS)),
         "rope_qk": dict(
-            name="rope_qk", path="train", source="rope_qk.cu", replaces="padt_tpu/ops/pallas_attention.py:574", tol=TOL,
+            name="rope_qk", path=path, source="rope_qk.cu", replaces="padt_tpu/ops/pallas_attention.py:574", tol=TOL,
             shape=f"{tag}text {b}x{l}x({h}+{hkv})x{hd}, sin negated: the rope's VJP",
             kern=lambda: C.rope_qk(gq, gk, tcos, tsin, h, hkv, sin_sign=-1.0),
             plain=lambda: C.rope_qk_plain(gq, gk, tcos, tsin, h, hkv, sin_sign=-1.0),
             bound=(2 * nbytes(gq, gk) + nbytes(tcos, tsin), 3 * (gq.numel() + gk.numel()), FP32_FLOPS)),
         "flash_bwd_dq": dict(
-            name="flash_bwd_dq", path="train", source="flash_bwd.cu", replaces="padt_tpu/ops/pallas_attention.py:348",
-            tol=TOL, relative=True, shape=shape + ", dq",
+            name="flash_bwd_dq", path=path, source="flash_bwd.cu", replaces="padt_tpu/ops/pallas_attention.py:348",
+            tol=TOL, relative=True, norm=True, shape=shape + ", dq",
             kern=lambda: FB.flash_bwd_dq(*args), plain=lambda: FB.flash_bwd_dq_plain(*args), library=sdpa_bwd,
             bound=(reads + nbytes(q), 6 * hd * h * pairs, BF16_TENSOR_FLOPS)),
         "flash_bwd_dkv": dict(
-            name="flash_bwd_dkv", path="train", source="flash_bwd.cu", replaces="padt_tpu/ops/pallas_attention.py:392",
-            tol=TOL, relative=True, shape=shape + ", dk and dv",
+            name="flash_bwd_dkv", path=path, source="flash_bwd.cu", replaces="padt_tpu/ops/pallas_attention.py:392",
+            tol=TOL, relative=True, norm=True, shape=shape + ", dk and dv",
             kern=lambda: FB.flash_bwd_dkv(*args), plain=lambda: FB.flash_bwd_dkv_plain(*args), library=sdpa_bwd,
             bound=(reads + nbytes(k, v), 8 * hd * h * pairs, BF16_TENSOR_FLOPS)),
     }
     return [cases[n] for n in names]
+
+
+def _vision_bwd_cases(q, k, v, g, seg, what):
+    """H8 and H9 at the vision tower's shape (2x2304, 16 heads of 80,
+    non-causal) on one of its layouts, q/k/v views of the fused qkv buffer,
+    from H2's LSE; yardsticks (path None): no path trains the tower yet."""
+    import torch.nn.functional as F
+
+    from padt_tpu_torch.ops import cuda_attention as C
+    from padt_tpu_torch.ops import cuda_flash_bwd as FB
+
+    b, s, h, hd = q.shape
+    scale = hd**-0.5
+    pairs, mask = _visible_pairs(seg, seg, False)
+    out, lse = C.segment_flash_fwd(q, k, v, seg, seg, False, scale, return_lse=True)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, g, seg, seg, lse, delta, False, scale)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    sd_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None], scale=scale)
+    sdpa_bwd = lambda: torch.autograd.grad(sd_out, (qt, kt, vt), g.transpose(1, 2), retain_graph=True)
+    reads = nbytes(q, k, v, g, lse, delta, seg)
+    shape = f"vision backward 2x2304x16x80 on {what}, q/k/v views of the fused qkv"
+    return [
+        dict(name="flash_bwd_dq", path=None, source="flash_bwd.cu", replaces="padt_tpu/ops/pallas_attention.py:348",
+             tol=TOL, relative=True, norm=True, shape=shape + ", dq",
+             kern=lambda: FB.flash_bwd_dq(*args), plain=lambda: FB.flash_bwd_dq_plain(*args), library=sdpa_bwd,
+             bound=(reads + nbytes(q), 6 * hd * h * pairs, BF16_TENSOR_FLOPS)),
+        dict(name="flash_bwd_dkv", path=None, source="flash_bwd.cu", replaces="padt_tpu/ops/pallas_attention.py:392",
+             tol=TOL, relative=True, norm=True, shape=shape + ", dk and dv",
+             kern=lambda: FB.flash_bwd_dkv(*args), plain=lambda: FB.flash_bwd_dkv_plain(*args), library=sdpa_bwd,
+             bound=(reads + nbytes(k, v), 8 * hd * h * pairs, BF16_TENSOR_FLOPS)),
+    ]
+
+
+def report_bwd_pairs(entries, card):
+    """[bwd]: per shape, H8 + H9 (the whole backward, in two launches)
+    against SDPA's whole backward, from the kernel lines' times."""
+    by_shape = {}
+    for e in entries:
+        if e["name"] in ("flash_bwd_dq", "flash_bwd_dkv"):
+            by_shape.setdefault(e["shape"].rsplit(", d", 1)[0], {})[e["name"]] = e
+    for shape, pair in by_shape.items():
+        dq, dkv = pair["flash_bwd_dq"], pair["flash_bwd_dkv"]
+        both, lib = dq["ms"] + dkv["ms"], dkv["library_ms"]
+        log(f"[bwd] {shape}: H8 {dq['ms']:.4f} + H9 {dkv['ms']:.4f} = {both:.4f} ms, SDPA backward {lib:.4f} ms "
+            f"({both / lib:.3f} of it), bound {dq['bound_ms'] + dkv['bound_ms']:.4f} ms ({card})")
+
+
+def report_ptxas(names=("dq_kernel", "dkv_kernel")):
+    """[ptxas]: registers and spill bytes of every H8 / H9 instance, from the
+    build's ptxas report; any spill fails the run."""
+    import re
+
+    from padt_tpu_torch.ops import _build
+
+    seen = 0
+    for fn, (regs, st, ld) in sorted(_build.resource_usage().items()):
+        m = re.search(r"(" + "|".join(names) + r")ILi(\d+)ELb([01])E", fn)
+        if m is None:
+            continue
+        seen += 1
+        kern = {"dq_kernel": "H8 flash_bwd_dq", "dkv_kernel": "H9 flash_bwd_dkv"}[m.group(1)]
+        log(f"[ptxas] {kern} hd {m.group(2)} causal {m.group(3)}: {regs} registers at launch, "
+            f"{st} bytes spill stores, {ld} bytes spill loads")
+        if st or ld:
+            raise AssertionError(f"{kern} hd {m.group(2)} causal {m.group(3)} spills ({st} / {ld} bytes)")
+    if seen != 2 * 2 * 5:
+        raise AssertionError(f"ptxas reported {seen} H8/H9 instances, expected 20")
 
 
 def phase_kernels(dev, card):
@@ -536,6 +622,7 @@ def phase_kernels(dev, card):
     t0 = time.perf_counter()
     _build.load_library()
     log(f"[build] {_build.library_path().relative_to(ROOT)} ready in {time.perf_counter() - t0:.1f} s")
+    report_ptxas()
 
     g = torch.Generator(device=dev).manual_seed(0)
     rnd = lambda *shape: (torch.randn(shape, generator=g, device=dev) * 0.5).to(torch.bfloat16)
@@ -594,12 +681,18 @@ def phase_kernels(dev, card):
         *_text_cases(dev, rnd, BATCH, c7.num_attention_heads, c7.num_key_value_heads, c7.head_dim, "7b", "7B "),
         *_int8_attn_cases(dev, g, rnd, c7.num_hidden_layers, SERVE_SLOTS, c7.num_key_value_heads,
                           c7.num_attention_heads // c7.num_key_value_heads, c7.head_dim, KV_CAP, "7b", "7B ", False),
-        # the train step's text layers: 8 rows of 640 + 64 tokens; and H9's GQA fold at 7B's 7:1
+        # the train step's text layers: 8 rows of 640 + 64 tokens; and H8 / H9 at 7B's heads (7:1), yardsticks:
+        # no path trains PaDT-7B
         *_train_cases(dev, rnd, TRAIN_BATCH, TRAIN_LEN, c3.num_attention_heads, c3.num_key_value_heads, c3.head_dim, ""),
         *_train_cases(dev, rnd, BATCH, TRAIN_LEN, c7.num_attention_heads, c7.num_key_value_heads, c7.head_dim, "7B ",
-                      names=("flash_bwd_dkv",)),
+                      names=("flash_bwd_dq", "flash_bwd_dkv"), path=None),
+        # H8 / H9 over the vision layouts (the unfrozen tower's backward; no path runs it yet)
+        *_vision_bwd_cases(u(vq), u(vk), u(vv), rnd(b, s, h, hd), seg_full, "seg_full"),
+        *_vision_bwd_cases(u(vq), u(vk), u(vv), rnd(b, s, h, hd), seg_win, "seg_win, segment-tile skip"),
     ]
-    return measure(cases, card)
+    entries = measure(cases, card)
+    report_bwd_pairs(entries, card)
+    return entries
 
 
 def phase_gqa(dev, card):

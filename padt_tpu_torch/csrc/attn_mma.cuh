@@ -1,6 +1,6 @@
-// Shared pieces of the mma.sync attention kernels (window_attn.cu,
-// flash_bwd.cu): bf16 tiles in shared memory, mma.sync m16n8k16 with fp32
-// accumulation, and one online-softmax step over a 64-key tile.
+// The pieces of H3's mma.sync attention kernel (window_attn.cu): bf16
+// tiles in shared memory, mma.sync m16n8k16 with fp32 accumulation, and one
+// online-softmax step over a 64-key tile.
 //
 // CTA shape: 4 warps, 64 query rows (16 per warp), 64 keys per tile. Each
 // warp owns its 16 rows end to end, so the softmax statistics never leave
@@ -25,7 +25,6 @@ constexpr int kRows = 64;     // query rows per CTA
 constexpr int kCols = 64;     // keys per tile
 constexpr int kThreads = 128; // 4 warps
 constexpr int kLdT = kCols + 8;  // row pitch of the transposed V tile
-constexpr float kBigLse = 1e30f;  // LSE of a query row with no visible key
 
 // row pitch of a [64 x HD] tile: +8 elements (16 bytes) shifts consecutive
 // rows by 4 banks, so the 8 rows a fragment load touches hit distinct banks

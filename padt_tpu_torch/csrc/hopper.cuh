@@ -126,13 +126,29 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // ------------------------------------------------------------------- wgmma
 
 // the shared-memory descriptor of a tile with rows of SPAN bytes (32, 64 or
-// 128), written by TMA with the swizzle of the same span
+// 128), written by TMA with the swizzle of the same span, at shared address a
 template <int SPAN>
-__device__ __forceinline__ uint64_t smem_desc(const void* tile) {
+__device__ __forceinline__ uint64_t smem_desc_at(uint32_t a) {
   static_assert(SPAN == 32 || SPAN == 64 || SPAN == 128, "swizzle span");
   constexpr uint64_t layout = SPAN == 128 ? 1 : SPAN == 64 ? 2 : 3;
   constexpr uint64_t atom = 8 * SPAN;  // bytes of one 8-row group
-  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | (uint64_t)1 << 16 | (atom >> 4) << 32 | layout << 62;
+  return (uint64_t)((a & 0x3FFFF) >> 4) | (uint64_t)1 << 16 | (atom >> 4) << 32 | layout << 62;
+}
+
+template <int SPAN>
+__device__ __forceinline__ uint64_t smem_desc(const void* tile) {
+  return smem_desc_at<SPAN>(smem_u32(tile));
+}
+
+// smem_desc of a tile that a loop reads on every pass, computed where it is
+// used (the empty asm keeps the compiler from hoisting it and its k-step
+// copies out of the loop), for kernels whose accumulators leave few
+// registers for values held across the loop
+template <int SPAN>
+__device__ __forceinline__ uint64_t smem_desc_here(const void* tile) {
+  uint32_t a = smem_u32(tile);
+  asm volatile("" : "+r"(a));
+  return smem_desc_at<SPAN>(a);
 }
 
 // the descriptor `bytes` further on (a multiple of 16)
@@ -221,6 +237,30 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+}
+
+// D (64 x 32) {+}= A (64 x 16, smem) * B (16 x 32, smem), both K-major
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 64) {+}= A (64 x 16, smem) * B (16 x 64, smem), both K-major
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // RS m64nNk16 by N, for a kernel templated on a tile width

@@ -27,15 +27,13 @@
 //     accumulator kept in registers, V read MN-major (the transpose bit);
 //   - masking only on the tiles that straddle a segment edge, the diagonal,
 //     padding or the end of the keys: the producer flags them;
-//   - the segment-tile skip: the producer warpgroup first summarises the
-//     segment ids of every 128-row query and key tile into a table in shared
-//     memory (lowest and highest valid id, and whether all are one valid id;
-//     all loads in flight), and the producer loads a key tile only if its
-//     valid ids [lo, hi] meet the query tile's: JAX's per-block intersection
-//     test, without its closure into one [lo, hi) range. The visited tiles
-//     hold every visible pair and lie inside _kblock_ranges's range at the
-//     same blocks (`segment_tiles_plain` in ops/cuda_attention.py states the
-//     rule in PyTorch). No extra launch, no host work;
+//   - the segment-tile skip (segment_tiles.cuh, shared with H8 and H9): the
+//     producer warpgroup first summarises the segment ids of every 128-row
+//     query and key tile into a table in shared memory (all loads in
+//     flight), and the producer loads a key tile only if its valid ids
+//     [lo, hi] meet the query tile's. The visited tiles hold every visible
+//     pair and lie inside _kblock_ranges's range at the same blocks. No
+//     extra launch, no host work;
 //   - persistent CTAs, at most one per SM, walk the work items (query tile,
 //     head, batch row) with two Q buffers: the producer loads the next
 //     item's Q and first K/V tiles while the consumers finish this one and
@@ -64,21 +62,20 @@
 // so q/k/v can be views of the fused vision qkv buffer. Rows past Sq / Sk
 // read as 0 and count as segment -1. out is contiguous (B, Sq, H, HD),
 // written from shared memory by TMA stores.
-#include <climits>
-
 #include "hopper.cuh"
+#include "segment_tiles.cuh"
 
 namespace padt {
 namespace sflash {
 
 using namespace hopper;
+using namespace segtiles;
 
 constexpr int BM = 128;        // query rows per work item: two consumer warpgroups of 64
 constexpr int BN = 128;        // keys per tile: S is one m64n128k16 wgmma per k-step
 constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int kTable = 1024;   // tile summaries a CTA keeps in shared memory
-constexpr int kSumBatch = 8;   // tiles a producer warp summarises per round of loads
-constexpr float kBigLse = 1e30f;  // a row with no visible key; flash_bwd.cu reads it as such
+constexpr float kBigLse = 1e30f;  // a row with no visible key: flash_bwd.cu's exp(s - lse) is 0 there
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD>
@@ -135,78 +132,6 @@ __device__ __forceinline__ int item_of(int r) {
   return r * gridDim.x + ((r & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
 }
 
-// A warp's summary of the segment ids seg[p0, p0 + 128), those at or past
-// n counting as -1: {lowest valid id (INT_MAX if none), highest id (-1 if
-// none is valid), lowest id (-1 if any is padding)}. v holds this lane's
-// four ids, p0 + lane + 32 r.
-__device__ __forceinline__ int4 summarize(const int (&v)[4]) {
-  int lo = INT_MAX, hi = -1, lo_all = INT_MAX;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    lo_all = min(lo_all, v[r]);
-    hi = max(hi, v[r]);
-    if (v[r] >= 0) lo = min(lo, v[r]);
-  }
-  return make_int4(__reduce_min_sync(0xffffffffu, lo), __reduce_max_sync(0xffffffffu, hi),
-                   __reduce_min_sync(0xffffffffu, lo_all), 0);
-}
-
-__device__ __forceinline__ void load_ids(int (&v)[4], const int* seg, int p0, int n, bool any) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int p = p0 + lane + 32 * r;
-    v[r] = any && p < n ? __ldg(seg + p) : -1;
-  }
-}
-
-// The summary of table entry e: the B * n_qt query tiles, then the
-// B * n_kt key tiles.
-struct Tables {
-  const int *q_seg, *k_seg;
-  int Sq, Sk, n_qt, n_kt, n_q, n_all;
-  __device__ __forceinline__ void locate(int e, const int*& seg, int& p0, int& n) const {
-    if (e < n_q) {
-      seg = q_seg + (long long)(e / n_qt) * Sq, p0 = (e % n_qt) * BM, n = Sq;
-    } else {
-      e -= n_q;
-      seg = k_seg + (long long)(e / n_kt) * Sk, p0 = (e % n_kt) * BN, n = Sk;
-    }
-  }
-};
-
-// The producer warpgroup's four warps fill the summary table, kSumBatch
-// tiles per warp at a time with all their loads in flight.
-__device__ __forceinline__ void fill_table(const Tables& tb, int4* sums) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int e0 = warp * kSumBatch; e0 < tb.n_all; e0 += 4 * kSumBatch) {
-    int v[kSumBatch][4];
-#pragma unroll
-    for (int u = 0; u < kSumBatch; ++u) {
-      const int* seg;
-      int p0, n;
-      tb.locate(min(e0 + u, tb.n_all - 1), seg, p0, n);
-      load_ids(v[u], seg, p0, n, e0 + u < tb.n_all);
-    }
-#pragma unroll
-    for (int u = 0; u < kSumBatch; ++u) {
-      const int4 sm = summarize(v[u]);
-      if (lane == 0 && e0 + u < tb.n_all) sums[e0 + u] = sm;
-    }
-  }
-}
-
-// Entry e of the table, or computed here when the table did not fit.
-__device__ __forceinline__ int4 summary(const Tables& tb, const int4* sums, bool in_table, int e) {
-  if (in_table) return sums[e];
-  const int* seg;
-  int p0, n;
-  tb.locate(e, seg, p0, n);
-  int v[4];
-  load_ids(v, seg, p0, n, true);
-  return summarize(v);
-}
-
 // Warp 0 of the producer warpgroup. For each of this CTA's items: its Q into
 // the item's buffer once the item two back has stored its output from it,
 // then each live key tile into the ring, then an end marker. A key tile is
@@ -224,7 +149,7 @@ __device__ __forceinline__ void produce(const Maps& maps, const Smem& sm, const 
     const int* ksb = tb.k_seg + (long long)w.b * tb.Sk;
     const int hk = w.h / (H / Hkv);
     const int4 qs = summary(tb, sm.sums, in_table, w.b * tb.n_qt + w.qt);
-    const bool q_one = qs.z == qs.y && qs.z >= 0;  // every row valid, one segment
+    const bool q_one = one_segment(qs);
 
     const int qbuf = r & 1;
     mbar_wait(&sm.q_empty[qbuf], ((r >> 1) & 1) ^ 1);
@@ -239,13 +164,13 @@ __device__ __forceinline__ void produce(const Maps& maps, const Smem& sm, const 
     if (CAUSAL) n_kt = min(n_kt, (w.q0 + BM - 1) / BN + 1);
     for (int kt = 0; kt < n_kt; ++kt) {
       const int4 ks = summary(tb, sm.sums, in_table, tb.n_q + w.b * tb.n_kt + kt);
-      if (!(ks.y >= qs.x && ks.x <= qs.y)) continue;  // no key meets the query tile's segments
+      if (!meets(ks, qs)) continue;  // no key meets the query tile's segments
       const int k0 = kt * BN;
-      const bool plain = q_one && ks.z == ks.y && ks.z == qs.z && (!CAUSAL || k0 + BN - 1 <= w.q0);
+      const bool plain = q_one && one_segment(ks) && ks.z == qs.z && (!CAUSAL || k0 + BN - 1 <= w.q0);
       mbar_wait(&sm.empty[stage], phase ^ 1);
       if (!plain) {  // the consumers mask this tile by its keys' ids
         int v[4];
-        load_ids(v, ksb, k0, tb.Sk, true);
+        load_ids(v, ksb, k0, tb.Sk, BN, true);
         int* seg = sm.seg + stage * BN;
 #pragma unroll
         for (int q = 0; q < 4; ++q) seg[lane + 32 * q] = v[q];
@@ -491,10 +416,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   sm.empty = sm.full + T::STAGES;
   sm.q_full = sm.empty + T::STAGES;
   sm.q_empty = sm.q_full + 2;
-  Tables tb;
-  tb.q_seg = q_seg, tb.k_seg = k_seg, tb.Sq = Sq, tb.Sk = Sk;
-  tb.n_qt = (Sq + BM - 1) / BM, tb.n_kt = (Sk + BN - 1) / BN;
-  tb.n_q = B * tb.n_qt, tb.n_all = tb.n_q + B * tb.n_kt;
+  const Tables tb(q_seg, k_seg, Sq, Sk, BM, BN, B);
   const bool in_table = tb.n_all <= kTable;
 
   if (threadIdx.x == 0) {
@@ -513,7 +435,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x < 128) {
     setmaxnreg_dec<56>();
     if (in_table) {
-      fill_table(tb, sm.sums);
+      fill_table(tb, sm.sums, threadIdx.x >> 5, 4);
       named_barrier(3, 128);
     }
     if (threadIdx.x < 32) produce<HD, CAUSAL>(maps, sm, tb, in_table, H, Hkv, B);

@@ -6,7 +6,8 @@ library with a plain C interface, loaded with `ctypes`. The library lands in
 `build/padt_tpu_torch/` at the repository root, named by a hash of the
 sources and flags, so an edited source is rebuilt at its first use and an
 unchanged one is loaded as it is. Nothing is built when the module is
-imported: the first kernel launch builds.
+imported: the first kernel launch builds. ptxas's report of every kernel's
+registers and spills is kept beside the library (`resource_usage`).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -23,7 +25,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "padt_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -77,13 +79,15 @@ def build() -> Path:
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in cu]
     cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(cu, objs)]
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)) for cmd in cmds]
-    failed = []
+    failed, report = [], []
     for cmd, pr in procs:  # wait for every compile before reporting any
         out, _ = pr.communicate()
+        report.append(out)
         if pr.returncode != 0:
             failed.append(f"nvcc failed ({pr.returncode}):\n{' '.join(cmd)}\n{out}")
     if failed:
         raise RuntimeError("\n".join(failed))
+    so.with_suffix(".ptxas.txt").write_text("".join(report))
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
     res = subprocess.run(cmd, capture_output=True, text=True)
@@ -93,6 +97,23 @@ def build() -> Path:
     for obj in objs:
         obj.unlink()
     return so
+
+
+def resource_usage() -> dict:
+    """{mangled kernel name: (registers, spill store bytes, spill load
+    bytes)} from ptxas's report of the current library's build (built
+    first if needed)."""
+    text = build().with_suffix(".ptxas.txt").read_text()
+    usage, name, spills = {}, None, (0, 0)
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            name, spills = m.group(1), (0, 0)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name is not None:
+            usage[name] = (int(m.group(1)), *spills)
+            name = None
+    return usage
 
 
 @functools.lru_cache(maxsize=None)

@@ -205,6 +205,9 @@ def segment_tiles_plain(q_seg, k_seg, blk_q: int, blk_k: int, causal: bool) -> t
     """(B, n_qb, n_kb) bool: the key tiles of `blk_k` keys that H2 visits for
     each tile of `blk_q` queries (the kernel's rule at 128 and 128, in
     PyTorch; the kernel decides in its producer warps and never calls this).
+    H8 (`flash_bwd_dq`) visits the same at 128 and 64; H9 (`flash_bwd_dkv`)
+    visits the transpose at 64 and 128: for each key tile, the query tiles
+    marked live (segment_tiles.cuh holds the kernels' one copy of the rule).
     A key tile is live if the interval [lowest, highest] of its valid (>= 0)
     segment ids meets the query tile's, and, when causal, its first key is
     not after the query tile's last row: JAX's per-block test in

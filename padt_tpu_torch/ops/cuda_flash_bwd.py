@@ -2,8 +2,20 @@
 
 | wrapper          | CUDA source        | replaces (padt_tpu/ops/pallas_attention.py) |
 |------------------|--------------------|---------------------------------------------|
-| `flash_bwd_dq`   | csrc/flash_bwd.cu  | `_bwd_dq_kernel` (H8)                       |
-| `flash_bwd_dkv`  | csrc/flash_bwd.cu  | `_bwd_dkv_kernel` (H9)                      |
+| `flash_bwd_dq`   | csrc/flash_bwd.cu  | `_bwd_dq_kernel` :348 (H8)                  |
+| `flash_bwd_dkv`  | csrc/flash_bwd.cu  | `_bwd_dkv_kernel` :392 (H9)                 |
+
+Both are bound by tensor-core operations (3 products of length hd per
+visible pair and query head in H8, 4 in H9) and are built for Hopper as H2
+is: a producer warp streams tiles through a TMA ring under mbarriers, two
+consumer warpgroups run the score products as SS-wgmma and the gradient
+products as RS-wgmma from registers, and only the tiles whose segment ids
+can meet are visited (H2's rule, `segment_tiles_plain`; H9 visits its
+transpose). H9 folds the G query heads of a kv head across a thread-block
+cluster: each CTA sums its heads' dk / dv in fp32, and after a cluster
+barrier each sums its share of rows over the cluster's shared memory in
+rank order and casts once. No atomics, so the gradients are the same bits
+from run to run. csrc/flash_bwd.cu has the details.
 
 They take what H2's forward saved (`segment_flash_fwd(..., return_lse=True)`)
 and the cotangent dO, with delta = rowsum(dO * O) in fp32, and compute what

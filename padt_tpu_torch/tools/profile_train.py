@@ -187,8 +187,8 @@ def main() -> int:
     ours = lambda *names: sum(v for k, v in by_name.items() if "padt::" in k and any(n in k for n in names))
     parts = {
         "H1 rope": ours("rope_qk_kernel"), "H2 flash fwd": ours("segment_flash_kernel"),
-        "H3 window": ours("window_slot_kernel"), "H8 dq": ours("flash_bwd_dq_kernel"),
-        "H9 dkv": ours("flash_bwd_dkv_kernel"),
+        "H3 window": ours("window_slot_kernel"), "H8 dq": ours("fbwd::dq::dq_kernel"),
+        "H9 dkv": ours("fbwd::dkv::dkv_kernel"),
     }
     wall = float(np.mean(walls))
     print(f"[profile_train] 3b batch {BATCH}, L {PROMPT_BUCKET + COMPLETION_BUCKET}: wall {wall:.1f} ms/step unprofiled "

@@ -599,26 +599,24 @@ def test_segment_flash_lse_matches_plain(dev, b, s, h, hkv, hd):
     assert torch.equal(out, CA.segment_flash_fwd(q, k, v, seg, seg, True, hd**-0.5))  # the LSE changes nothing else
 
 
-@pytest.mark.parametrize("b,s,h,hkv,hd,causal", [
-    (3, 203, 4, 2, 128, True), (2, 640, 16, 2, 128, True), (2, 130, 28, 4, 128, True),
-    (2, 96, 4, 4, 80, False), (2, 100, 4, 1, 64, True),
-])
-def test_flash_bwd_matches_plain(dev, b, s, h, hkv, hd, causal):
-    """dq, dk, dv against the twins from the same LSE and delta; GQA 2:1,
-    8:1, 7:1, 1:1 and 4:1, tails past a 64-row block, a row with no
-    visible key; twice, bit for bit (no atomics)."""
-    from padt_tpu_torch.ops import cuda_attention as CA
+# H8/H9 against their twins: 2e-2 of the largest reference output, since the
+# kernels round ds and p to bf16 at other places than the fp32 twins and sum
+# in fp32 in another order. A gradient that is 0 in exact arithmetic (one
+# visible key per row, so dp - delta cancels: dq and dk at length 1) is
+# fp32 cancellation noise on both sides, held to BWD_ZERO absolute instead.
+# Each output is also held as a whole, to a relative norm gap of BWD_NORM,
+# so that errors in its small entries (late keys, rows of few keys) count.
+BWD_TOL = 2e-2
+BWD_ZERO = 1e-6
+BWD_NORM = 1e-2
+
+
+def _bwd_check(args, seg_q, seg_k, causal):
+    """H8 and H9 on `args` against the twins (one launch each), with exact
+    zeros where a row or key has no visible partner; then again, bit for bit
+    (no atomics: the cluster fold sums in one fixed order)."""
     from padt_tpu_torch.ops import cuda_flash_bwd as FB
 
-    g = torch.Generator(device=dev).manual_seed(s + h)
-    q, k, v, gr, seg = _train_inputs(g, dev, b, s, h, hkv, hd, 37)
-    if not causal:
-        seg = torch.sort(torch.randint(0, 3, (b, s), generator=g, device=dev), dim=1).values.int()
-        seg[:, -11:] = -1
-    scale = hd**-0.5
-    out, lse = CA.segment_flash_fwd(q, k, v, seg, seg, causal, scale, return_lse=True)
-    delta = (gr.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    args = (q, k, v, gr, seg, seg, lse, delta, causal, scale)
     n0 = dict(FB.launch_counts)
     dq = FB.flash_bwd_dq(*args)
     dk, dv = FB.flash_bwd_dkv(*args)
@@ -627,11 +625,88 @@ def test_flash_bwd_matches_plain(dev, b, s, h, hkv, hd, causal):
     rq, (rk, rv) = FB.flash_bwd_dq_plain(*args), FB.flash_bwd_dkv_plain(*args)
     for got, ref in ((dq, rq), (dk, rk), (dv, rv)):
         assert got.shape == ref.shape and got.dtype == torch.bfloat16
-        assert _err(got, ref) <= 2e-2 * ref.float().abs().max().item()
-    assert float(dq[seg < 0].float().abs().max()) == 0.0
+        top = ref.float().abs().max().item()
+        assert _err(got, ref) <= (BWD_TOL * top if top > 100 * BWD_ZERO else BWD_ZERO)
+        if top > 100 * BWD_ZERO:
+            assert ((got.float() - ref.float()).norm() / ref.float().norm()).item() <= BWD_NORM
+    vis = C.visible(seg_q, seg_k, causal)[:, 0]  # (B, Sq, Sk)
+    lone_rows, lone_keys = ~vis.any(-1), ~vis.any(1)
+    if lone_rows.any():
+        assert float(dq[lone_rows].float().abs().max()) == 0.0
+    if lone_keys.any():
+        assert float(dk[lone_keys].float().abs().max()) == 0.0 and float(dv[lone_keys].float().abs().max()) == 0.0
     dq2 = FB.flash_bwd_dq(*args)
     dk2, dv2 = FB.flash_bwd_dkv(*args)
     assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("b,s,h,hkv,hd,causal", [
+    (3, 203, 4, 2, 128, True), (2, 640, 16, 2, 128, True), (2, 130, 28, 4, 128, True),
+    (2, 96, 4, 4, 80, False), (2, 100, 4, 1, 64, True),
+    (2, 704, 16, 2, 128, False), (2, 77, 2, 1, 80, True), (3, 1, 4, 4, 64, False), (2, 1, 4, 2, 128, True),
+    (2, 333, 8, 2, 32, True), (2, 129, 8, 1, 32, False), (2, 129, 7, 1, 16, False), (2, 333, 14, 2, 16, True),
+    (2, 200, 16, 1, 64, True), (2, 150, 24, 2, 80, False),
+])
+def test_flash_bwd_matches_plain(dev, b, s, h, hkv, hd, causal):
+    """dq, dk, dv against the twins from the same LSE and delta: every head
+    dim, causal and not; GQA 1:1, 2:1, 4:1, 7:1, 8:1 and past the cluster of
+    8 (16:1, and 12:1, whose CTAs fold two heads or one); lengths 1, 77,
+    129, 333 and 704 (tails past a 64- and a 128-row tile); left padding, a
+    row with no visible key, segments and right padding; twice, bit for
+    bit."""
+    from padt_tpu_torch.ops import cuda_attention as CA
+
+    g = torch.Generator(device=dev).manual_seed(s + h)
+    q, k, v, gr, seg = _train_inputs(g, dev, b, s, h, hkv, hd, 37)
+    if not causal:
+        seg = torch.sort(torch.randint(0, 3, (b, s), generator=g, device=dev), dim=1).values.int()
+        if s > 11:
+            seg[:, -11:] = -1
+    scale = hd**-0.5
+    out, lse = CA.segment_flash_fwd(q, k, v, seg, seg, causal, scale, return_lse=True)
+    delta = (gr.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq, _, _ = _bwd_check((q, k, v, gr, seg, seg, lse, delta, causal, scale), seg, seg, causal)
+    if (seg < 0).any():
+        assert float(dq[seg < 0].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("layout", ["seg_win", "seg_full"])
+def test_flash_bwd_window_slots(dev, layout):
+    """H8/H9 over the vision tower's layouts at hd 80 (the unfrozen tower's
+    backward): q, k, v and dO as head views of fused buffers, non-causal;
+    on seg_win most tiles are skipped."""
+    from padt_tpu_torch.ops import cuda_attention as CA
+
+    g = torch.Generator(device=dev).manual_seed(80)
+    b, h, hd = 2, 4, 80
+    geo = vision_geometry([(1, 46, 46), (1, 20, 28)], 2304)
+    seg = torch.as_tensor(getattr(geo, layout), device=dev)
+    s = seg.shape[1]
+    qkv, gg = _randn(g, (b, s, 3 * h * hd), dev), _randn(g, (b, s, 2 * h * hd), dev)
+    q, k, v = (qkv[..., i * h * hd : (i + 1) * h * hd].unflatten(-1, (h, hd)) for i in range(3))
+    gr = gg[..., h * hd :].unflatten(-1, (h, hd))
+    scale = hd**-0.5
+    out, lse = CA.segment_flash_fwd(q, k, v, seg, seg, False, scale, return_lse=True)
+    delta = (gr.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    _bwd_check((q, k, v, gr, seg, seg, lse, delta, False, scale), seg, seg, False)
+
+
+def test_flash_bwd_beyond_the_summary_table(dev):
+    """One batch row of 12288 tokens: 192 query tiles of 64 + 96 key tiles of
+    128 (H9), 96 + 192 (H8), past the kernels' table of 256 summaries, so
+    their producers summarise each tile as they go; causal, segments."""
+    from padt_tpu_torch.ops import cuda_attention as CA
+
+    g = torch.Generator(device=dev).manual_seed(12288)
+    b, s, h, hkv, hd = 1, 12288, 2, 1, 64
+    q, k, v, gr, _ = _train_inputs(g, dev, b, s, h, hkv, hd, 0)
+    seg = torch.sort(torch.randint(0, 40, (b, s), generator=g, device=dev), dim=1).values.int()
+    seg[:, :300] = -1
+    scale = hd**-0.5
+    out, lse = CA.segment_flash_fwd(q, k, v, seg, seg, True, scale, return_lse=True)
+    delta = (gr.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    _bwd_check((q, k, v, gr, seg, seg, lse, delta, True, scale), seg, seg, True)
 
 
 def test_rope_negated_sin_is_the_vjp(dev):

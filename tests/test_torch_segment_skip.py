@@ -6,6 +6,14 @@ packed multi-segment rows, the vision window slots): every visible (query,
 key) pair lies in a live tile, and every live tile lies in the k-block range
 [lo, hi) of JAX's `_kblock_ranges` at the same blocks.
 
+(a') the same rule for the backward kernels: H8 visits the key tiles of 64
+of each query tile of 128, H9 the transpose, the query tiles of 64 of each
+key tile of 128 from the causal diagonal on. At those tiles every visible
+pair lies in a visited tile; at equal blocks of 64 and 128 (the only ones
+`_flash_bwd_pallas` uses) every visited tile also lies in the range it
+loops over: `_kblock_ranges(q_seg, k_seg, ...)` for dq, the transposed
+`_kblock_ranges(k_seg, q_seg, ...)` with the causal lower bound for dk / dv.
+
 (b) `segment_flash_fwd` on CPU tensors (its plain twin) against JAX's
 `flash_attention` (Pallas in TPU interpret mode) on the window-slot layout at
 hd 80, float32: 1e-5 relative to the largest output (only the order of sums
@@ -66,6 +74,39 @@ def test_skip_rule_covers_visible_pairs_within_jax_ranges(kind, seed, blk):
 
     if kind.startswith("windows"):  # the skip's point: a query tile of window slots visits its own tile only
         assert live.sum(-1).max() == 1 and (live.sum(-1) == 1).sum() >= b * n // 2
+
+
+@pytest.mark.parametrize("kind,seed", [("left_pad", 0), ("left_pad", 1), ("packed", 2), ("packed", 3),
+                                       ("windows", 0), ("windows_3b", 0)])
+@pytest.mark.parametrize("blk_q,blk_k", [(128, 64), (64, 128), (64, 64), (128, 128)])
+def test_backward_skip_rules_cover_visible_pairs_within_jax_ranges(kind, seed, blk_q, blk_k):
+    seg, causal = _layout(kind, seed)
+    b, s = seg.shape
+    nq, nk = s // blk_q, s // blk_k
+    live = C.segment_tiles_plain(torch.as_tensor(seg), torch.as_tensor(seg), blk_q, blk_k, causal).numpy()
+    assert live.shape == (b, nq, nk)
+    vis = (seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] >= 0)
+    if causal:
+        vis &= np.tril(np.ones((s, s), bool))[None]
+    tile_has_pair = vis.reshape(b, nq, blk_q, nk, blk_k).any(axis=(2, 4))
+    assert not (tile_has_pair & ~live).any(), "a visible pair lies in a skipped tile"
+    visits = live.transpose(0, 2, 1)  # H9: (B, key tiles, query tiles)
+    qb = np.arange(nq)[None, None, :]
+    if causal:  # H9 starts at the key tile's diagonal query tile
+        assert not (visits & (qb < ((np.arange(nk) * blk_k) // blk_q)[None, :, None])).any()
+    if blk_q != blk_k:
+        return
+
+    # H8 (dq): key tiles per query tile, inside _bwd_dq_kernel's [lo, hi)
+    lo, hi = (np.asarray(x) for x in JPA._kblock_ranges(jnp.asarray(seg), jnp.asarray(seg), blk_q, blk_k, causal))
+    kb = np.arange(nk)[None, None, :]
+    assert not (live & ~((kb >= lo[:, :, None]) & (kb < hi[:, :, None]))).any(), "H8 visits a tile outside [lo, hi)"
+
+    # H9 (dk, dv): query tiles per key tile, inside _bwd_dkv_kernel's [qlo, qhi)
+    qlo, qhi = (np.asarray(x) for x in JPA._kblock_ranges(jnp.asarray(seg), jnp.asarray(seg), blk_k, blk_q, False))
+    if causal:
+        qlo = np.maximum(qlo, (np.arange(nk) * blk_k) // blk_q)
+    assert not (visits & ~((qb >= qlo[:, :, None]) & (qb < qhi[:, :, None]))).any(), "H9 visits a tile outside [qlo, qhi)"
 
 
 def test_skip_rule_query_tiles_with_no_valid_row_visit_nothing():

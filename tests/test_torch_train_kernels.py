@@ -118,6 +118,38 @@ def test_bwd_twins_match_jax_pallas_backward():
     close(dv, np.asarray(jdv))
 
 
+def test_bwd_twins_match_jax_pallas_backward_over_several_blocks():
+    """The same on a non-causal layout of several segments and right padding
+    at hd 80, S = 896, where `_pick_block` gives JAX 128-blocks: seven
+    q-blocks and k-blocks, so `_kblock_ranges` cuts each kernel's loop."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    b, s, h, hkv, d = 1, 896, 2, 1, 80
+    assert JPA._pick_block(s) == 128
+    q, k, v, g = _qkvg(b, s, h, hkv, d, 6)
+    seg = np.repeat(np.arange(7, dtype=np.int32), 128)[None] // 2  # 256-token segments, one 128-token last
+    seg[:, 700:] = -1
+    scale = d**-0.5
+    with pltpu.force_tpu_interpret_mode():
+        jo, jl = JPA._flash_raw(
+            jnp.asarray(q.transpose(0, 2, 1, 3)), jnp.asarray(k.transpose(0, 2, 1, 3)), jnp.asarray(v.transpose(0, 2, 1, 3)),
+            jnp.asarray(seg), jnp.asarray(seg), False, scale, return_lse=True,
+        )
+        jo = jo.transpose(0, 2, 1, 3)
+        jdq, jdk, jdv, _, _ = JPA._flash_bwd_pallas(
+            False, scale, tuple(jnp.asarray(x) for x in (q, k, v, seg, seg)) + (jo, jl), jnp.asarray(g))
+    out, lse = C.segment_flash_fwd(T(q), T(k), T(v), T(seg), T(seg), False, scale, return_lse=True)
+    delta = (T(g) * out).sum(-1).transpose(1, 2).contiguous()
+    args = (T(q), T(k), T(v), T(g), T(seg), T(seg), lse, delta, False, scale)
+    dq = FB.flash_bwd_dq(*args)
+    close(dq, np.asarray(jdq))
+    assert float(dq[0, 700:].abs().max()) == 0.0
+    dk, dv = FB.flash_bwd_dkv(*args)
+    close(dk, np.asarray(jdk))
+    close(dv, np.asarray(jdv))
+    assert float(dk[0, 700:].abs().max()) == 0.0 and float(dv[0, 700:].abs().max()) == 0.0
+
+
 def test_causal_attention_grads_match_jax():
     """Gradients of a loss weighted on the valid rows, through JAX's
     causal_attention (XLA branch) and the port's (the flash_attention
