@@ -20,12 +20,14 @@ one process per source, into build/padt_tpu_torch/), then:
      causal limit, H6 into one layer) and H4's int8 x int8 score mode
      (PADT_DECODE_QI8) among them; H2's vision lines are held to 2e-2 of
      their largest output; H8 / H9 each output to 2e-2 of its own largest
-     value and to a relative norm gap of 1e-2; [gqa]: H2 at its GQA shapes against one kv head
-     per query head, warm and from HBM (logged); [ptxas]: the registers and
-     spill bytes of every H8 / H9 instance from the build's ptxas report (a
-     spill fails the run); [bwd]: per shape, H8 + H9 against SDPA's whole
-     backward, and H8 / H9 over the vision layouts (seg_full and seg_win,
-     q/k/v views of the fused qkv) as yardsticks;
+     value and to a relative norm gap of 1e-2, as are H7's and H10's lines; each
+     line prints the kernel's share of its bound; [gqa]: H2 at its GQA shapes
+     against one kv head per query head, warm and from HBM (logged); [ptxas]:
+     the registers and spill bytes of every H8 / H9 instance and every H7 /
+     H10 GEMM instance from the build's ptxas report (a spill fails the
+     run); [bwd]: per shape, H8 + H9 against SDPA's whole backward, and H8 /
+     H9 over the vision layouts (seg_full and seg_win, q/k/v views of the
+     fused qkv) as yardsticks;
   3. [forms]: drives the older forms through `ops.kv_cache` (store-then-
      attend over the 36 layers, unstacked and layer=, n_valid) with the
      launch counters reset before and read after, exact launches, and holds
@@ -72,12 +74,13 @@ one process per source, into build/padt_tpu_torch/), then:
      memory;
   9. [7b]: frees PaDT-3B, builds PaDT-7B at full depth and width with int8
      packed text-layer weights on the card (`init_padt_params_quantized`,
-     seeded), holds H7 against its twin at the 7B products' shapes (M = 8
-     decode rows and M = 2560 prefill rows, walking the 28 layers' weights),
+     seeded), holds H7 against its twin at the 7B products' shapes (M = 4
+     and 8 decode rows, M = 2560 prefill rows, walking the 28 layers' weights),
      then runs `run_batch` of 4 REC queries (bf16 KV) and `run_stream` of 16
      requests (int8 KV, 8 slots, bucket 4, prompt 640, 32 new tokens), each
      with the launch counters reset before and read after, checks the
-     outputs and the launch floors, and prints the times;
+     outputs and the launch floors, and prints the times and H7's launches
+     split by M;
  10. [stream]: `tools/micro_stream_matmul.py` at PaDT-3B, B = 96, 36 layers
      (torch, H10 with the norms fused, H10 without): device ms and GB/s per
      pass, exactly 4 x 36 H10 launches per pass, each output as close to the
@@ -107,7 +110,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL = 2e-2  # bf16 outputs of magnitude ~1: output rounding + sum order
-NORM_TOL = 1e-2  # H8/H9: ||kernel - twin|| / ||twin|| of each output (bf16 rounding of p, ds and the output)
+NORM_TOL = 1e-2  # H7-H10: ||kernel - twin|| / ||twin|| of each output (bf16 rounding of the output, of p and ds)
 APART = 0.25  # a mode's kernel: its mean abs gap from its twin at most this share of its gap from another mode's twin
 TINY_REL_TOL = 5e-2  # tiny model in bf16 with kernels vs float32 plain path
 TINY_GRAD_REL_TOL = 0.1  # each trainable leaf's gradient, relative norm, bf16 card vs float32 CPU
@@ -256,7 +259,8 @@ def measure(cases, card):
         b_ms, b_by = bound_ms(*c["bound"])
         lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
         log(f"[kernel] {c['name']} [{c['shape']}]: max_abs_err {tol_txt}, kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, library {lib_txt}, bound {b_ms:.4f} ms ({b_by}) ({card})")
+            f"plain {plain_ms:.4f} ms, library {lib_txt}, bound {b_ms:.4f} ms ({b_by}), "
+            f"kernel at {b_ms / ms:.3f} of its bound ({card})")
         entries.append({
             "name": c["name"], "route": "cuda", "source": f"padt_tpu_torch/csrc/{c['source']}",
             "replaces": c["replaces"], "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -587,26 +591,32 @@ def report_bwd_pairs(entries, card):
             f"({both / lib:.3f} of it), bound {dq['bound_ms'] + dkv['bound_ms']:.4f} ms ({card})")
 
 
-def report_ptxas(names=("dq_kernel", "dkv_kernel")):
-    """[ptxas]: registers and spill bytes of every H8 / H9 instance, from the
-    build's ptxas report; any spill fails the run."""
+def report_ptxas():
+    """[ptxas]: registers and spill bytes of every H8 / H9 instance and every
+    H7 / H10 GEMM instance (gemm_sm90.cuh), from the build's ptxas report;
+    any spill fails the run."""
     import re
 
     from padt_tpu_torch.ops import _build
 
-    seen = 0
+    seen = {"bwd": 0, "gemm": 0}
     for fn, (regs, st, ld) in sorted(_build.resource_usage().items()):
-        m = re.search(r"(" + "|".join(names) + r")ILi(\d+)ELb([01])E", fn)
-        if m is None:
+        if m := re.search(r"(dq_kernel|dkv_kernel)ILi(\d+)ELb([01])E", fn):
+            seen["bwd"] += 1
+            kern = {"dq_kernel": "H8 flash_bwd_dq", "dkv_kernel": "H9 flash_bwd_dkv"}[m.group(1)]
+            what = f"{kern} hd {m.group(2)} causal {m.group(3)}"
+        elif m := re.search(r"gemm_kernelILb([01])ELb([01])ELi(\d+)EE", fn):
+            seen["gemm"] += 1
+            kern = "H7 int8_matmul" if m.group(1) == "1" else "H10 stream_matmul"
+            what = f"{kern} {'swap-AB' if m.group(2) == '1' else 'prefill'} n {m.group(3)}"
+        else:
             continue
-        seen += 1
-        kern = {"dq_kernel": "H8 flash_bwd_dq", "dkv_kernel": "H9 flash_bwd_dkv"}[m.group(1)]
-        log(f"[ptxas] {kern} hd {m.group(2)} causal {m.group(3)}: {regs} registers at launch, "
-            f"{st} bytes spill stores, {ld} bytes spill loads")
+        log(f"[ptxas] {what}: {regs} registers at launch, {st} bytes spill stores, {ld} bytes spill loads")
         if st or ld:
-            raise AssertionError(f"{kern} hd {m.group(2)} causal {m.group(3)} spills ({st} / {ld} bytes)")
-    if seen != 2 * 2 * 5:
-        raise AssertionError(f"ptxas reported {seen} H8/H9 instances, expected 20")
+            raise AssertionError(f"{what} spills ({st} / {ld} bytes)")
+    # H8 / H9: 5 head dims x causal or not; H7 / H10: 6 swap-AB n and one prefill tile each
+    if seen != {"bwd": 2 * 2 * 5, "gemm": 2 * (6 + 1)}:
+        raise AssertionError(f"ptxas reported {seen} instances, expected 20 H8/H9 and 14 H7/H10")
 
 
 def phase_kernels(dev, card):
@@ -798,6 +808,7 @@ def phase_run_batch(tag, dev, card, cfg, params, proc):
     from padt_tpu_torch.eval.harness import InferenceEngine
     from padt_tpu_torch.models import language
     from padt_tpu_torch.models import padt as P
+    from padt_tpu_torch.ops import cuda_quant
 
     counters = _counters()
 
@@ -813,7 +824,9 @@ def phase_run_batch(tag, dev, card, cfg, params, proc):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {k: v for c in counters for k, v in c.launch_counts.items()}
-    log(f"[{tag}] run_batch of {BATCH} REC queries: {wall:.3f} s wall ({card}); launches {counts}")
+    by_m = dict(sorted(cuda_quant.launches_by_m.items()))  # H7's launches by the rows of x
+    log(f"[{tag}] run_batch of {BATCH} REC queries: {wall:.3f} s wall ({card}); launches {counts}"
+        + (f"; H7 launches by M {by_m}" if by_m else ""))
     vc, tc = cfg.vision, cfg.text
     if len(results) != BATCH or not all(isinstance(r.completion, str) for r in results):
         raise AssertionError("run_batch returned malformed results")
@@ -1278,8 +1291,9 @@ def check_int8_matmul_launches(cfg, n, forwards, what):
 
 
 def _h7_cases(dev, layers, tag):
-    """H7 vs its twin at the 7B products' shapes, M = 8 (a decode step of 8
-    slots) and M = 2560 (a prefill bucket of 4 x 640), walking the layers'
+    """H7 vs its twin at the 7B products' shapes, M = 4 (a run_batch decode
+    step of 4 rows), M = 8 (a serve decode step of 8 slots) and M = 2560 (a
+    prefill bucket of 4 x 640), walking the layers'
     own int8 weights from call to call so that each call streams its weight
     from HBM (the walk covers at least three times the 50 MB L2); the
     yardstick is torch._weight_int8pack_mm on the same walk."""
@@ -1299,10 +1313,11 @@ def _h7_cases(dev, layers, tag):
         nb = min(nl, max(2, -(-int(L2_WALK_BYTES) // (k * n))))
         ours = [(wq[i], s[i]) for i in range(nb)]
         lib = [(wq[i].t().contiguous(), s[i].reshape(-1).to(torch.bfloat16)) for i in range(nb)]  # (N, K) int8, (N,) bf16
-        for m in (8, BATCH * PROMPT_LEN):
+        for m in (BATCH, SERVE_SLOTS, BATCH * PROMPT_LEN):
             x = (torch.randn((m, k), generator=g, device=dev) * 0.5).to(torch.bfloat16)
             cases.append(dict(
                 name="int8_matmul", path="7b", source="int8_matmul.cu", replaces="padt_tpu/ops/quant.py:70", tol=TOL, relative=True,
+                norm=True,
                 shape=f"{tag}{name}_q M={m} x K={k} x N={n} ({nb} layers' weights in turn)",
                 kern=walk(Q.int8_matmul, x, ours), plain=walk(quant.int8_matmul_plain, x, ours),
                 library=walk(torch._weight_int8pack_mm, x, lib),
@@ -1319,6 +1334,7 @@ def phase_7b(dev, card):
     from padt_tpu_torch import padt_7b
     from padt_tpu_torch.eval.harness import InferenceEngine
     from padt_tpu_torch.models import padt as P
+    from padt_tpu_torch.ops import cuda_quant as Q
 
     cfg = padt_7b()
     t0 = time.perf_counter()
@@ -1349,6 +1365,7 @@ def phase_7b(dev, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts_s = {k: v for c in counters for k, v in c.launch_counts.items()}
+    log(f"[7b] run_stream H7 launches by M {dict(sorted(Q.launches_by_m.items()))}")
     _check_results("7B run_stream", results, SERVE_REQUESTS)
     sp = engine.pop_stream_stats()
     _report_serve("7b", card, "run_stream, int8 weights", wall, sp["engine_prefill_s"], sp["engine_decode_s"],
@@ -1565,7 +1582,7 @@ def _h10_cases(dev, layers, tcfg):
             calls = "rms_norm + linear, two calls" if fused else "linear, one call"
             cases.append(dict(
                 name="stream_matmul", path="stream", source="stream_matmul.cu", replaces="padt_tpu/ops/matmul.py:76",
-                tol=TOL, relative=True,
+                tol=TOL, relative=True, norm=True,
                 shape=f"{name} M={STREAM_B} x K={k} x N={n}{', rms_norm fused' if fused else ''}{', bias' if bias is not None else ''} "
                       f"({nl} layers' weights in turn; library: {calls})",
                 kern=walk(MM.stream_matmul_stacked), plain=walk(MM.stream_matmul_stacked_ref), library=library(),

@@ -65,7 +65,7 @@
 // its own shared memory at the end (over its K/V and ring buffers), and
 // after a cluster barrier CTA r sums its share of the 128 rows over the C
 // CTAs' shared memory (distributed shared memory, as H4 does in int8_kv.cu)
-// in rank order, casts once and stores. Every sum is taken in one fixed
+// in rank order (cluster_fold.cuh), casts once and stores. Every sum is taken in one fixed
 // order, so the gradients are the same bits from run to run. The launcher
 // picks C: the fold's distributed reads bound it, so C is the smallest that
 // still gives every SM a CTA (2 at the train step's shapes).
@@ -76,6 +76,7 @@
 // dk, dv (B, Sk, Hkv, HD) bf16, contiguous.
 #include <cooperative_groups.h>
 
+#include "cluster_fold.cuh"
 #include "hopper.cuh"
 #include "segment_tiles.cuh"
 
@@ -472,13 +473,7 @@ __device__ __forceinline__ void fold(const Smem& sm, const Item& w, int Sk, int 
     if (key >= Sk) continue;
     float* src = stk + which * BK * T::PITCH + row * T::PITCH + c8;
     float acc[8];
-    zero(acc);
-    for (int c = 0; c < w.C; ++c) {  // in rank order
-      const float4* p = reinterpret_cast<const float4*>(cluster.map_shared_rank(src, c));
-      const float4 a = p[0], b = p[1];
-      acc[0] += a.x, acc[1] += a.y, acc[2] += a.z, acc[3] += a.w;
-      acc[4] += b.x, acc[5] += b.y, acc[6] += b.z, acc[7] += b.w;
-    }
+    fold::fold8(cluster, src, w.C, acc);
     uint4 out;
     out.x = pack_bf16x2(acc[0], acc[1]), out.y = pack_bf16x2(acc[2], acc[3]);
     out.z = pack_bf16x2(acc[4], acc[5]), out.w = pack_bf16x2(acc[6], acc[7]);

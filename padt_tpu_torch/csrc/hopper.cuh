@@ -23,6 +23,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <mutex>
 
 namespace padt {
 namespace hopper {
@@ -82,6 +85,21 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// fetches a TMA descriptor (in kernel parameter space) into the cache ahead of its first use
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// the same over a 3D view
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -320,6 +338,63 @@ inline int encode_bf16_4d(CUtensorMap* map, const void* base, long long d0, long
                         CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A TMA descriptor over a view of up to 3 dimensions {d0, d1, d2}
+// (innermost first, unit stride in d0; s1, s2 the byte strides of d1, d2,
+// multiples of 16) of elements of `elem` bytes (2: bf16, 1: uint8), with a
+// box {box0, box1, box2}, stored with the swizzle of `swizzle` bytes (0 for
+// none, else 32, 64 or 128 = box0 * elem). Encodings are cached by all of
+// these values: an entry is a pure function of its key, so a hit is always
+// the descriptor a fresh encoding would give. Returns a CUDA error code (0
+// on success).
+inline int encode_cached(CUtensorMap* map, int elem, const void* base, long long d0, long long d1, long long d2,
+                         long long s1, long long s2, int box0, int box1, int box2, int swizzle) {
+  struct Key {
+    const void* base;
+    long long v[5];
+    int b[5];
+  };
+  struct Entry {
+    Key key;
+    CUtensorMap map;
+    bool used;
+  };
+  constexpr int kSlots = 256;  // direct-mapped
+  static Entry cache[kSlots];
+  static std::mutex mu;
+  Key key;
+  memset(&key, 0, sizeof(key));  // the padding too: keys compare as bytes
+  key.base = base;
+  key.v[0] = d0, key.v[1] = d1, key.v[2] = d2, key.v[3] = s1, key.v[4] = s2;
+  key.b[0] = elem, key.b[1] = box0, key.b[2] = box1, key.b[3] = box2, key.b[4] = swizzle;
+  uint64_t h = 1469598103934665603ull;  // FNV-1a over the key's bytes
+  for (size_t i = 0; i < sizeof(key); ++i) h = (h ^ reinterpret_cast<const uint8_t*>(&key)[i]) * 1099511628211ull;
+  Entry& e = cache[h % kSlots];
+  std::lock_guard<std::mutex> lock(mu);
+  if (e.used && memcmp(&e.key, &key, sizeof(key)) == 0) {
+    *map = e.map;
+    return 0;
+  }
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  if ((elem != 1 && elem != 2) || (swizzle != 0 && swizzle != box0 * elem)) return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)s1, (cuuint64_t)s2};
+  const cuuint32_t box[3] = {(cuuint32_t)box0, (cuuint32_t)box1, (cuuint32_t)box2};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle sw = swizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                : swizzle == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                                : CU_TENSOR_MAP_SWIZZLE_NONE;
+  const CUresult r = fn(map, elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 3,
+                        const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  e.key = key;
+  e.map = *map;
+  e.used = true;
+  return 0;
 }
 
 }  // namespace hopper

@@ -6,43 +6,38 @@
 
 The wrapper takes CUDA tensors only: `ops.quant.int8_matmul` sends CPU
 tensors to the plain twin beside it (`ops.quant.int8_matmul_plain`). It
-checks device, dtype, shape and strides, allocates the output (and the fp32
-split-K scratch) with `torch.empty`, launches on the current stream, raises
-on a CUDA error code, and adds one to `launch_counts["int8_matmul"]`.
+checks device, dtype, shape and strides, allocates the output with
+`torch.empty`, launches on the current stream by its launch plan
+(`launch_plan`, pure Python), raises on a CUDA error code, and adds one to
+`launch_counts["int8_matmul"]`.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from ._build import check, load_library
 from .cuda_attention import _require, _same_device, _stream
-from .cuda_kv import _FILL_CTAS
+from .cuda_matmul import GemmPlan, gemm_plan
 
 launch_counts = {"int8_matmul": 0}
-
-_BM, _BN, _BK = 64, 128, 64  # the kernel's output tile and K step
-_MAX_SPLITS = 16
+launches_by_m = {}  # {M: launches}: the same launches split by the rows of x (decode or prefill)
 
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+    launches_by_m.clear()
 
 
-def k_splits(m: int, n: int, k: int) -> int:
-    """K splits (grid.z): doubled from 1 while the output tiles give fewer
-    than two CTAs per SM and each split keeps at least 4 K steps (decode:
-    M = 8 gives one row of tiles; prefill fills the card with 1)."""
-    tiles = -(-m // _BM) * -(-n // _BN)
-    k_tiles = -(-k // _BK)
-    split = 1
-    while split < _MAX_SPLITS and tiles * split < _FILL_CTAS and k_tiles >= 8 * split:
-        split *= 2
-    return split
+def launch_plan(m: int, n: int, k: int) -> GemmPlan:
+    """H7's launch plan (int8 weight): `cuda_matmul.gemm_plan`."""
+    return gemm_plan(m, n, k, int8=True)
 
 
-def int8_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def int8_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, plan: Optional[GemmPlan] = None) -> torch.Tensor:
     """x (..., K) bf16 @ dequant(wq (K, N) int8, scale (N,) or (1, N) fp32)
     -> (..., N) bf16 contiguous. x's rows may be strided (unit column
     stride, a row stride that is a multiple of 8); leading dims must flatten
@@ -67,13 +62,13 @@ def int8_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch
     for t in (x2, wq):
         _require(name, t.data_ptr() % 16 == 0, "x and wq must be 16-byte aligned")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    split = k_splits(m, n, k)
-    ws = torch.empty((split, m, n), dtype=torch.float32, device=x.device) if split > 1 else None
+    pl = plan or launch_plan(m, n, k)
     lib = load_library()
     rc = lib.padt_int8_matmul(
         x2.data_ptr(), x2.stride(0), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), m, n, k, split, _stream(x),
+        m, n, k, int(pl.swap_ab), pl.nt, pl.splits, pl.stages, _stream(x),
     )
     check(lib, name, rc)
     launch_counts[name] += 1
+    launches_by_m[m] = launches_by_m.get(m, 0) + 1
     return out.view(*lead, n)

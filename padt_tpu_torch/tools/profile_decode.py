@@ -105,8 +105,8 @@ def main() -> int:
     busy = sum(by_name.values())
     if busy <= 0:
         raise AssertionError("the profiler recorded no device time")
-    ours = lambda *names: sum(v for k, v in by_name.items() if k.startswith("padt::") and any(n in k for n in names))
-    h7 = ours("int8_matmul_kernel", "reduce_kernel")  # the GEMM and its split-K pass
+    ours = lambda *names: sum(v for k, v in by_name.items() if "padt::" in k and any(n in k for n in names))
+    h7 = ours("gemm_kernel<true")  # gemm_sm90.cuh's int8 instances (H10's are gemm_kernel<false, ...>)
     attn = ours("int8_attn_kernel")
     tag = f"{args.model} {SLOTS} slots"
     print(f"[profile] {tag}: wall {wall_ms:.3f} ms/step unprofiled, {prof_ms:.3f} ms/step profiled; "

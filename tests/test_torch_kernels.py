@@ -437,15 +437,31 @@ def test_single_layer_stores_match_the_cpu(dev, kq):
 # ---------------------------------------------------------------------------
 
 
+GEMM_NORM = 1e-2  # H7 / H10: ||kernel - twin|| / ||twin|| (bf16 output rounding, another order of sums)
+
+
+def _gemm_check(out, ref):
+    """2e-2 of the largest output, and a relative norm gap of 1e-2 over the
+    whole output (as `_bwd_check`): a wrong split or tile that leaves small
+    outputs wrong fails the second."""
+    assert _err(out, ref) <= 2e-2 * ref.float().abs().max().item()
+    assert ((out.float() - ref.float()).norm() / ref.float().norm()).item() <= GEMM_NORM
+
+
+# the launch plans of these shapes are checked on the CPU (tests/test_torch_gemm_plan.py, CARD_H7 / CARD_H10)
 @pytest.mark.parametrize(
     "m,k,n",
-    [(1, 96, 64), (7, 96, 96), (65, 160, 96), (130, 128, 320), (8, 3584, 3584), (256, 3584, 4608), (300, 200, 48)],
+    [(1, 96, 64), (7, 96, 96), (65, 160, 96), (130, 128, 320), (8, 3584, 3584), (256, 3584, 4608), (300, 200, 48),
+     (128, 512, 320), (129, 512, 320), (8, 4096, 1024), (8, 512, 1024), (8, 256, 1024), (8, 64, 1024),
+     (8, 1000, 1008), (4, 3584, 4608)],
 )
 def test_int8_matmul_matches_plain(dev, m, k, n):
     """M, N and K tails (the tiny model's N of 64..320 and K of 96 / 160,
-    K = 200 not a multiple of the 64-wide K step), split-K shapes (M = 8 and
-    256 at 7B's widths) and one tile per CTA. Tolerance 2e-2 relative to the
-    output's largest magnitude: bf16 output rounding and another order of sums."""
+    K = 200 and 1000 not a multiple of the 64-row stage, N = 1008 not a
+    multiple of the 128-column tile), both orientations at the switch
+    (swap-AB at M = 128, the usual one at 129), clusters of 8, 4, 2 and 1 K
+    splits (M = 8, N = 1024, K = 4096 / 512 / 256 / 64), 7B's widths at M =
+    4, 8 and 256. Tolerance: `_gemm_check`."""
     from padt_tpu_torch.ops import cuda_quant as Q
     from padt_tpu_torch.ops import quant
 
@@ -459,7 +475,29 @@ def test_int8_matmul_matches_plain(dev, m, k, n):
     assert Q.launch_counts["int8_matmul"] == n0 + 1
     ref = quant.int8_matmul_plain(x, wq, s)
     assert out.shape == (m, n) and out.dtype == torch.bfloat16
-    assert _err(out, ref) <= 2e-2 * ref.float().abs().max().item()
+    _gemm_check(out, ref)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 1024), (96, 11008, 2048)])
+def test_split_k_reruns_are_bit_identical(dev, m, k, n):
+    """H7 and H10 at split-K shapes (clusters of 8, and 8 / 5): the K splits are
+    folded in rank order, with no atomics, so two calls give the same bits."""
+    from padt_tpu_torch.ops import cuda_matmul as CM
+    from padt_tpu_torch.ops import matmul as MM
+    from padt_tpu_torch.ops import quant
+
+    assert CM.launch_plan(m, n, k).splits > 1
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = _randn(g, (m, k), dev)
+    wq = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    s = torch.full((n,), 1e-3, device=dev)
+    w = _randn(g, (2, k, n), dev, scale=k**-0.5)
+    ln = (1.0 + torch.randn((2, k), generator=g, device=dev) * 0.1).to(torch.bfloat16)
+    a = [quant.int8_matmul(x, wq, s), MM.stream_matmul_stacked(x, w, 1, ln_w=ln), MM.stream_matmul_stacked(x, w, 0)]
+    b = [quant.int8_matmul(x, wq, s), MM.stream_matmul_stacked(x, w, 1, ln_w=ln), MM.stream_matmul_stacked(x, w, 0)]
+    torch.cuda.synchronize()
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
 
 
 def test_int8_matmul_strided_rows_and_leading_dims(dev):
@@ -501,13 +539,17 @@ def test_int8_matmul_refuses_what_the_kernel_does_not_take(dev):
 @pytest.mark.parametrize(
     "m,k,n,fuse,bias",
     [(96, 2048, 2560, True, True), (96, 2048, 2048, False, False), (96, 2048, 22016, True, False),
-     (96, 11008, 2048, False, False), (5, 96, 256, True, True), (130, 160, 96, True, False), (300, 200, 48, False, True)],
+     (96, 11008, 2048, False, False), (5, 96, 256, True, True), (130, 160, 96, True, False), (300, 200, 48, False, True),
+     (128, 512, 320, True, True), (129, 512, 320, True, True), (8, 4096, 1024, False, True), (8, 512, 1024, True, False),
+     (8, 256, 1024, False, False), (8, 64, 1024, True, True), (96, 1000, 1000, True, True)],
 )
 def test_stream_matmul_matches_plain(dev, m, k, n, fuse, bias):
-    """The four PaDT-3B decode products at M = 96 (split-K 8, 8, 1 and 16),
-    the tiny model's widths, M past one 128-row tile, K = 200 not a multiple
-    of the 32-wide K step. Tolerance 2e-2 relative to the output's largest
-    magnitude: bf16 output rounding and another order of sums."""
+    """The four PaDT-3B decode products at M = 96 (K splits 4, 5, 1 and 5),
+    the tiny model's widths, M past one 128-row tile, K = 200 and 1000 not a
+    multiple of the 64-row stage, N = 1000 not a multiple of the tile, both
+    orientations at the switch (M = 128 and 129), clusters of 8, 4, 2 and 1
+    K splits (M = 8, N = 1024, K = 4096 / 512 / 256 / 64). Tolerance:
+    `_gemm_check`."""
     from padt_tpu_torch.ops import cuda_matmul as CM
     from padt_tpu_torch.ops import matmul as MM
 
@@ -523,7 +565,7 @@ def test_stream_matmul_matches_plain(dev, m, k, n, fuse, bias):
     assert CM.launch_counts["stream_matmul"] == n0 + 1
     ref = MM.stream_matmul_stacked_ref(x, w, li, ln_w=ln, bias=b)
     assert out.shape == (m, n) and out.dtype == torch.bfloat16
-    assert _err(out, ref) <= 2e-2 * ref.float().abs().max().item()
+    _gemm_check(out, ref)
 
 
 def test_stream_matmul_layer_tensor_strided_rows_and_refusals(dev):
