@@ -18,14 +18,18 @@ one process per source, into build/padt_tpu_torch/), then:
      peak rate of their type); the int8 KV forms beside the serve path's
      (K13-K18, H4 without its fresh column or with n_valid, H5 with the
      causal limit, H6 into one layer) and H4's int8 x int8 score mode
-     (PADT_DECODE_QI8) among them; H2's vision lines are held to 2e-2 of
+     (PADT_DECODE_QI8) among them, and H5 at the speculative verify's kq =
+     4 beside the suffix pass's 32; H2's vision lines are held to 2e-2 of
      their largest output; H8 / H9 each output to 2e-2 of its own largest
-     value and to a relative norm gap of 1e-2, as are H7's and H10's lines; each
+     value and to a relative norm gap of 1e-2, as are H7's and H10's lines
+     and every H4 / H5 line (QI8 to its one ulp and the same norm gap); each
      line prints the kernel's share of its bound; [gqa]: H2 at its GQA shapes
      against one kv head per query head, warm and from HBM (logged); [ptxas]:
-     the registers and spill bytes of every H8 / H9 instance and every H7 /
-     H10 GEMM instance from the build's ptxas report (a spill fails the
-     run); [bwd]: per shape, H8 + H9 against SDPA's whole backward, and H8 /
+     the registers and spill bytes of every H8 / H9 instance, every H7 /
+     H10 GEMM instance and every H4 / H5 instance from the build's ptxas
+     report (a spill fails the run, and so does an H4 / H5 instance with no
+     tensor-core product in its SASS: HMMA and, for QI8, IMMA in H4, HGMMA
+     in H5); [bwd]: per shape, H8 + H9 against SDPA's whole backward, and H8 /
      H9 over the vision layouts (seg_full and seg_win, q/k/v views of the
      fused qkv) as yardsticks;
   3. [forms]: drives the older forms through `ops.kv_cache` (store-then-
@@ -53,8 +57,9 @@ one process per source, into build/padt_tpu_torch/), then:
      with budgets of 8..32 tokens, `run_stream(share_prefix=True)` of 8
      prompts over 2 images, and a speculative=4 engine run, with the launch
      counters reset just before and read just after; checks the outputs and
-     the launch floors, and prints wall, device prefill / decode seconds,
-     decode tok/s and slot utilization;
+     the launch floors (H5's split by kq: 36 per speculative verify pass at
+     kq = 4, 36 per suffix pass at kq = 32), and prints wall, device prefill
+     / decode seconds, decode tok/s and slot utilization;
   7. [qi8]: the same weights with PADT_DECODE_QI8's int8 x int8 decode
      scores: int8 `generate` of 4 queries (first without QI8) and
      `run_stream` of 16 requests over 8 slots (step 6's first run is the one
@@ -127,6 +132,7 @@ SERVE_REQUESTS = 16
 SERVE_BUCKET = 4  # requests per admission (prefill) bucket
 KV_SLOTS, KV_CAP = 16, 768  # int8 kernel lines: a 16-slot pool, capacity 640 + 32 rounded to 128
 SUFFIX_K = 32  # rows of a suffix pass (H5's kq, H6's widest store)
+SPEC_K = 4  # the speculative engine's draft_k: H5's kq in a verify pass
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_TENSOR_FLOPS = 989e12  # dense bf16 tensor-core peak
 INT8_TENSOR_OPS = 1979e12  # dense int8 tensor-core peak
@@ -265,6 +271,7 @@ def measure(cases, card):
             "name": c["name"], "route": "cuda", "source": f"padt_tpu_torch/csrc/{c['source']}",
             "replaces": c["replaces"], "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "shape": c["shape"], "path": c["path"],
+            "launch_key": c.get("launch_key", c["name"]),
         })
     return entries
 
@@ -284,8 +291,8 @@ def _int8_attn_cases(dev, g, rnd, nl, slots, hkv, gq, hd, cap, path, tag, with_v
     valid = torch.arange(cap, device=dev)[None, :] < lens[:, None]
     valid[:, :40] = False  # left padding
     live = valid.sum(dim=1)
-    fresh1, fresh32 = kv(slots, hkv, 1), kv(slots, hkv, SUFFIX_K)
-    qd, qv = rnd(slots, hkv, gq, hd), rnd(slots, hkv, gq * SUFFIX_K, hd)
+    fresh1, fresh32, fresh4 = kv(slots, hkv, 1), kv(slots, hkv, SUFFIX_K), kv(slots, hkv, SPEC_K)
+    qd, qv, qs = rnd(slots, hkv, gq, hd), rnd(slots, hkv, gq * SUFFIX_K, hd), rnd(slots, hkv, gq * SPEC_K, hd)
     rows1, rows32 = kv(nl, slots, hkv, 1), kv(nl, slots, hkv, SUFFIX_K)
     pos = lens.int()
     one = torch.ones(slots, dtype=torch.int32, device=dev)
@@ -309,18 +316,27 @@ def _int8_attn_cases(dev, g, rnd, nl, slots, hkv, gq, hd, cap, path, tag, with_v
     attn_ops = lambda q_rows, cols: 4 * hd * hkv * q_rows * cols  # QK and PV: int8 is exact in bf16, so bf16 tensor cores
     cases = [dict(
         name="int8_decode_attn", path=path, source="int8_kv.cu", replaces="padt_tpu/ops/kv_cache.py:206", tol=TOL,
-        shape=f"{tag}decode {slots} slots x {hkv} kv heads x {gq} q x{hd}, int8 cache {nl}x{cap} (layers in turn), 1 fresh column",
+        relative=True, norm=True, shape=f"{tag}decode {slots} slots x {hkv} kv heads x {gq} q x{hd}, int8 cache {nl}x{cap} (layers in turn), 1 fresh column",
         kern=walk(K.int8_decode_attn, qd, *cache, *fresh1, valid), plain=walk(K.int8_decode_attn_plain, qd, *cache, *fresh1, valid),
         bound=(layer_bytes + nbytes(qd, *fresh1, valid) + nbytes(qd), attn_ops(gq, int(live.sum()) + slots), BF16_TENSOR_FLOPS),
     )]
     if with_verify:
         cases.append(dict(
             name="int8_verify_attn", path=path, source="int8_kv.cu", replaces="padt_tpu/ops/kv_cache.py:402", tol=TOL,
-            shape=f"{tag}suffix pass {slots} slots x {hkv} kv heads x ({gq}x{SUFFIX_K}) q x{hd}, int8 cache {nl}x{cap} (layers in turn), {SUFFIX_K} fresh columns",
+            relative=True, norm=True, launch_key=f"int8_verify_attn kq={SUFFIX_K}", shape=f"{tag}suffix pass {slots} slots x {hkv} kv heads x ({gq}x{SUFFIX_K}) q x{hd}, int8 cache {nl}x{cap} (layers in turn), {SUFFIX_K} fresh columns",
             kern=walk(K.int8_verify_attn, qv, *cache, *fresh32, valid, tail=(SUFFIX_K,)),
             plain=walk(K.int8_verify_attn_plain, qv, *cache, *fresh32, valid, tail=(SUFFIX_K,)),
             bound=(layer_bytes + nbytes(qv, *fresh32, valid) + nbytes(qv),
                    attn_ops(gq * SUFFIX_K, int(live.sum())) + attn_ops(gq, slots * SUFFIX_K * (SUFFIX_K + 1) // 2), BF16_TENSOR_FLOPS),
+        ))
+        cases.append(dict(
+            name="int8_verify_attn", path=path, source="int8_kv.cu", replaces="padt_tpu/ops/kv_cache.py:402", tol=TOL,
+            relative=True, norm=True, launch_key=f"int8_verify_attn kq={SPEC_K}",
+            shape=f"{tag}speculative verify {slots} slots x {hkv} kv heads x ({gq}x{SPEC_K}) q x{hd}, int8 cache {nl}x{cap} (layers in turn), {SPEC_K} fresh columns",
+            kern=walk(K.int8_verify_attn, qs, *cache, *fresh4, valid, tail=(SPEC_K,)),
+            plain=walk(K.int8_verify_attn_plain, qs, *cache, *fresh4, valid, tail=(SPEC_K,)),
+            bound=(layer_bytes + nbytes(qs, *fresh4, valid) + nbytes(qs),
+                   attn_ops(gq * SPEC_K, int(live.sum())) + attn_ops(gq, slots * SPEC_K * (SPEC_K + 1) // 2), BF16_TENSOR_FLOPS),
         ))
     cases.append(dict(
         name="store_kv_rows", path=path, source="int8_kv.cu", replaces="padt_tpu/ops/kv_cache.py:750", tol=0.0,
@@ -399,22 +415,22 @@ def _kv_form_cases(dev, g, rnd, nl, hkv, gq, hd):
     dec = f"decode {b} slots x {hkv} kv heads x {gq} q x{hd}, int8 cache {nl}x{cap} (layers in turn)"
     cases = [
         dict(name="int8_decode_attn", path="forms", source="int8_kv.cu", replaces="padt_tpu/ops/kv_cache.py:87", tol=TOL,
-             shape=f"K13 {dec}, unstacked (a one-layer view), no fresh column",
+             relative=True, norm=True, shape=f"K13 {dec}, unstacked (a one-layer view), no fresh column",
              kern=walk(K.int8_decode_attn, qd, tail=(*none4, valid), view=True),
              plain=walk(K.int8_decode_attn_plain, qd, tail=(*none4, valid), view=True),
              bound=(layer_bytes + nbytes(qd, valid) + nbytes(qd), attn_ops(gq, live), BF16_TENSOR_FLOPS)),
         dict(name="int8_decode_attn", path="forms", source="int8_kv.cu", replaces="padt_tpu/ops/kv_cache.py:135", tol=TOL,
-             shape=f"K14 {dec}, layer=, no fresh column",
+             relative=True, norm=True, shape=f"K14 {dec}, layer=, no fresh column",
              kern=walk(K.int8_decode_attn, qd, tail=(*none4, valid)), plain=walk(K.int8_decode_attn_plain, qd, tail=(*none4, valid)),
              bound=(layer_bytes + nbytes(qd, valid) + nbytes(qd), attn_ops(gq, live), BF16_TENSOR_FLOPS)),
         dict(name="int8_decode_attn_qi8", path="3b_qi8", source="int8_kv.cu", replaces="padt_tpu/ops/kv_cache.py:173", tol=TOL,
-             shape=f"K6 quantize_q (int8 x int8 scores) {dec}, 1 fresh column",
+             norm=True, shape=f"K6 quantize_q (int8 x int8 scores) {dec}, 1 fresh column",
              kern=walk(K.int8_decode_attn, qd, tail=(*fresh1, valid), quantize_q=True),
              plain=walk(K.int8_decode_attn_plain, qd, tail=(*fresh1, valid), quantize_q=True), ulp=True,
              apart=walk(K.int8_decode_attn_plain, qd, tail=(*fresh1, valid)), apart_name="bf16-score twin",
              bound=(layer_bytes + nbytes(qd, *fresh1, valid) + nbytes(qd), qi8_ops, (INT8_TENSOR_OPS, BF16_TENSOR_FLOPS))),
         dict(name="int8_verify_attn", path="forms", source="int8_kv.cu", replaces="padt_tpu/ops/kv_cache.py:1340", tol=TOL,
-             shape=f"K16 suffix pass {b} slots x {hkv} kv heads x ({gq}x{SUFFIX_K}) q x{hd}, int8 cache {nl}x{cap} holding the "
+             relative=True, norm=True, shape=f"K16 suffix pass {b} slots x {hkv} kv heads x ({gq}x{SUFFIX_K}) q x{hd}, int8 cache {nl}x{cap} holding the "
                    f"{SUFFIX_K} new rows (layers in turn), causal limit from write_pos",
              kern=walk(K.int8_verify_attn, qv, tail=(*none4, valid_sfx), kq=SUFFIX_K, write_pos=wp),
              plain=walk(K.int8_verify_attn_plain, qv, tail=(*none4, valid_sfx), kq=SUFFIX_K, write_pos=wp),
@@ -449,7 +465,7 @@ def _kv_form_cases(dev, g, rnd, nl, hkv, gq, hd):
     # softmax (p / denom): tolerance relative to the output's largest magnitude, as JAX's own 2e-2 rtol
     cases.append(dict(
         name="int8_decode_attn", path="forms", source="int8_kv.cu", replaces="padt_tpu/ops/kv_cache.py:545", tol=TOL, relative=True,
-        shape=f"K15 decode {b96} slots x {hkv} kv heads x {gq} q x{hd}, unstacked int8 cache {nl}x{c96} (layers in turn), "
+        norm=True, shape=f"K15 decode {b96} slots x {hkv} kv heads x {gq} q x{hd}, unstacked int8 cache {nl}x{c96} (layers in turn), "
               f"n_valid 640..{c96} ({n_live / b96:.0f} live rows per slot on average)",
         kern=tiled(K.int8_decode_attn), plain=tiled(K.int8_decode_attn_plain),
         bound=(n_live * (hkv * (2 * hd + 2 * 4) + 1) + 2 * nbytes(q96) + nbytes(nv), attn_ops(gq, n_live), BF16_TENSOR_FLOPS)))
@@ -591,16 +607,28 @@ def report_bwd_pairs(entries, card):
             f"({both / lib:.3f} of it), bound {dq['bound_ms'] + dkv['bound_ms']:.4f} ms ({card})")
 
 
+def _sass(fn, so):
+    """The SASS of kernel `fn` (a mangled name) in library `so`."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    return subprocess.run([tool, "-sass", "-fun", fn, str(so)], capture_output=True, text=True, timeout=120, check=True).stdout
+
+
 def report_ptxas():
-    """[ptxas]: registers and spill bytes of every H8 / H9 instance and every
-    H7 / H10 GEMM instance (gemm_sm90.cuh), from the build's ptxas report;
-    any spill fails the run."""
+    """[ptxas]: registers and spill bytes of every H8 / H9 instance, every
+    H7 / H10 GEMM instance (gemm_sm90.cuh) and every H4 / H5 instance, from
+    the build's ptxas report; any spill fails the run, and so does an H4 /
+    H5 instance whose SASS has no tensor-core product (H4's HMMA, and IMMA
+    for its int8 x int8 scores; H5's HGMMA)."""
     import re
 
     from padt_tpu_torch.ops import _build
 
-    seen = {"bwd": 0, "gemm": 0}
+    so = _build.build()
+    seen = {"bwd": 0, "gemm": 0, "kv": 0}
     for fn, (regs, st, ld) in sorted(_build.resource_usage().items()):
+        mma = ()
         if m := re.search(r"(dq_kernel|dkv_kernel)ILi(\d+)ELb([01])E", fn):
             seen["bwd"] += 1
             kern = {"dq_kernel": "H8 flash_bwd_dq", "dkv_kernel": "H9 flash_bwd_dkv"}[m.group(1)]
@@ -609,14 +637,29 @@ def report_ptxas():
             seen["gemm"] += 1
             kern = "H7 int8_matmul" if m.group(1) == "1" else "H10 stream_matmul"
             what = f"{kern} {'swap-AB' if m.group(2) == '1' else 'prefill'} n {m.group(3)}"
+        elif m := re.search(r"decode_kernelILi(\d+)ELb([01])E", fn):
+            seen["kv"] += 1
+            qi8 = m.group(2) == "1"
+            what, mma = f"H4 int8_decode_attn hd {m.group(1)}{' quantize_q' if qi8 else ''}", ("HMMA", "IMMA") if qi8 else ("HMMA",)
+        elif m := re.search(r"verify_kernelILi(\d+)ELi(\d+)EE", fn):
+            seen["kv"] += 1
+            what, mma = f"H5 int8_verify_attn hd {m.group(1)}, {m.group(2)} row tile(s)", ("HGMMA",)
         else:
             continue
-        log(f"[ptxas] {what}: {regs} registers at launch, {st} bytes spill stores, {ld} bytes spill loads")
+        counts = ""
+        if mma:
+            sass = _sass(fn, so)
+            found = {op: sass.count(op) for op in mma}
+            counts = ", " + ", ".join(f"{n} {op}" for op, n in found.items()) + " in its SASS"
+            if not all(found.values()):
+                raise AssertionError(f"{what}: no tensor-core product in its SASS ({found})")
+        log(f"[ptxas] {what}: {regs} registers at launch, {st} bytes spill stores, {ld} bytes spill loads{counts}")
         if st or ld:
             raise AssertionError(f"{what} spills ({st} / {ld} bytes)")
-    # H8 / H9: 5 head dims x causal or not; H7 / H10: 6 swap-AB n and one prefill tile each
-    if seen != {"bwd": 2 * 2 * 5, "gemm": 2 * (6 + 1)}:
-        raise AssertionError(f"ptxas reported {seen} instances, expected 20 H8/H9 and 14 H7/H10")
+    # H8 / H9: 5 head dims x causal or not; H7 / H10: 6 swap-AB n and one prefill tile each; H4: 5 head dims x
+    # bf16 or int8 scores, H5: 4 head dims x one or two row tiles, and hd 256
+    if seen != {"bwd": 2 * 2 * 5, "gemm": 2 * (6 + 1), "kv": 5 * 2 + 4 * 2 + 1}:
+        raise AssertionError(f"ptxas reported {seen} instances, expected 20 H8/H9, 14 H7/H10 and 19 H4/H5")
 
 
 def phase_kernels(dev, card):
@@ -1235,7 +1278,7 @@ def phase_serve(dev, card, cfg, model, proc):
 
     # 4. speculative=4: prompt-lookup drafts verified 4 tokens at a time (H5)
     n_spec = SERVE_SLOTS
-    spec = ServeEngine(engine.params, cfg, speculative=4, **kw)
+    spec = ServeEngine(engine.params, cfg, speculative=SPEC_K, **kw)
     t0 = time.perf_counter()
     scomps, sst = spec.run(reqs[:n_spec])
     torch.cuda.synchronize()
@@ -1248,9 +1291,19 @@ def phase_serve(dev, card, cfg, model, proc):
     log(f"[serve] speculative vs plain greedy: {same} of {n_spec} completions token-identical "
         "(bf16 verify and decode round differently, so a near-tie may flip)")
 
-    counts = {k: v for c in counters for k, v in c.launch_counts.items()}
+    counts = _with_kq({k: v for c in counters for k, v in c.launch_counts.items()})
     log(f"[serve] launches {counts}; forwards {forwards}")
     return counts, forwards, base
+
+
+def _with_kq(counts):
+    """The launch counts with H5's split by kq (suffix passes, kq = SUFFIX_K;
+    speculative verify, kq = SPEC_K), read from the wrapper's own split."""
+    from padt_tpu_torch.ops import cuda_kv as K
+
+    for kq in (SUFFIX_K, SPEC_K):
+        counts[f"int8_verify_attn kq={kq}"] = K.verify_launches_by_kq.get(kq, 0)
+    return counts
 
 
 def check_serve_launches(cfg, counts, forwards, what="the serve phase"):
@@ -1262,6 +1315,9 @@ def check_serve_launches(cfg, counts, forwards, what="the serve phase"):
     need = {"int8_decode_attn": nl * forwards["decode"], "store_kv_rows": forwards["decode"] + passes}
     if passes:
         need["int8_verify_attn"] = nl * passes
+    for kq, fw in ((SPEC_K, "verify"), (SUFFIX_K, "suffix")):
+        if forwards[fw]:
+            need[f"int8_verify_attn kq={kq}"] = nl * forwards[fw]
     for k, n in need.items():
         if not (n > 0 and counts[k] >= n):
             raise AssertionError(f"{k} launched {counts[k]} times in {what}, expected >= {n} (> 0)")
@@ -1364,7 +1420,7 @@ def phase_7b(dev, card):
     results = engine.run_stream(prompts, images, n_slots=SERVE_SLOTS, prefill_bucket=SERVE_BUCKET, prompt_bucket=PROMPT_LEN)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts_s = {k: v for c in counters for k, v in c.launch_counts.items()}
+    counts_s = _with_kq({k: v for c in counters for k, v in c.launch_counts.items()})
     log(f"[7b] run_stream H7 launches by M {dict(sorted(Q.launches_by_m.items()))}")
     _check_results("7B run_stream", results, SERVE_REQUESTS)
     sp = engine.pop_stream_stats()
@@ -1684,11 +1740,11 @@ def main() -> int:
              "train": train_counts, "7b": counts_7b, "stream": stream_counts}
     kernels, yardsticks = [], []
     for e in entries:
-        path = e.pop("path")
+        path, key = e.pop("path"), e.pop("launch_key")
         if path is None:  # a layout no path runs yet: timed and checked, launched 0 times on the main paths
             yardsticks.append({**e, "launches": 0})
         else:
-            kernels.append({**e, "launches": paths[path][e["name"]]})
+            kernels.append({**e, "launches": paths[path][key]})
     log(json.dumps({"yardsticks": yardsticks}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

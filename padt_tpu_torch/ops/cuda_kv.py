@@ -30,6 +30,9 @@ bf16 roundings in the same places; they return the query's dtype.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Optional
+
 import torch
 
 from ._build import check, load_library
@@ -44,9 +47,14 @@ _SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use on Hopper
 launch_counts = {"int8_decode_attn": 0, "int8_decode_attn_qi8": 0, "int8_verify_attn": 0, "store_kv_rows": 0}
 
 
+# H5's launches by kq: speculative verify (kq = draft_k) and suffix passes (kq = 32) apart
+verify_launches_by_kq: dict = {}
+
+
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+    verify_launches_by_kq.clear()
 
 
 def _check_cache(name, k8, ks, v8, vs, valid, layer: int):
@@ -76,26 +84,159 @@ def _check_fresh(name, fresh, b, hkv, kq, hd):
         _require(name, t8.dtype == torch.int8 and t8.shape == (b, hkv, kq, hd), f"fresh rows must be int8 {(b, hkv, kq, hd)}, got {t8.dtype} {tuple(t8.shape)}")
         _require(name, ts.dtype == torch.float32 and ts.shape == (b, hkv, kq), f"fresh scales must be fp32 {(b, hkv, kq)}")
         _require(name, t8.is_contiguous() and ts.is_contiguous(), "fresh rows and scales must be contiguous")
+        _require(name, t8.data_ptr() % 16 == 0, "fresh rows must be 16-byte aligned")
 
 
-_ATTN_ROWS = 8  # query rows per CTA of the attention kernel
+# The attention kernels' launch plan (pure Python, so the CPU tests check it;
+# csrc/int8_kv.cu's `verify_smem` / `decode_smem` mirror `attn_smem_bytes`).
+ATTN_TILE = 64  # cache columns per tile of the shared-memory ring
+ATTN_ROWS = {"decode": 8, "verify": 64}  # query rows per CTA (H5: per row tile): H4's mma n, H5's wgmma m64
+MAX_SPLIT = 8  # the largest portable cluster
+MAX_STAGES = 5  # ring slots of a streamed (not resident) chunk: the kernel waits with a depth of stages - 2 <= 3
 _FILL_CTAS = 264  # two CTAs per SM of an H100 (132 SMs)
+VERIFY_MIN_CHUNK = 3 * ATTN_TILE  # H5: the fewest cache columns a split leaves a CTA
+VERIFY_ROW_TILES = 2  # H5: 64-row tiles a CTA takes where it can (tools/attn_sweep.py)
+_RESIDENT_SMEM = 113 * 1024  # shared memory that leaves room for two CTAs an SM
 
 
-def _column_split(b: int, hkv: int, rows: int) -> int:
-    """CTAs per cluster over the cache columns: doubled from 1 up to 8 while
-    the grid has fewer than two CTAs per SM (decode: G = 8 rows per slot and
-    kv head; a suffix pass has 32x the rows and keeps 1)."""
-    ctas, split = b * hkv * -(-rows // _ATTN_ROWS), 1
-    while split < 8 and ctas * split < _FILL_CTAS:
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def attn_smem_bytes(kind: str, hd: int, stages: int, chunk: int, n_fresh: int = 0, row_tiles: int = 1) -> int:
+    """Dynamic shared memory of one CTA: the int8 ring (`stages` slots of a K
+    and a V tile, rows padded by 16 bytes), the per-column scales and valid
+    bytes of a chunk, and the kernel's own tiles: H5's bf16 q (64 rows a
+    row tile), K and V tiles in wgmma's swizzled layout (1024-byte
+    aligned) and the cluster's (m, l); H4's q rows (bf16, int8, fp32), the
+    transposed V tile, four 8 x 16 P tiles, the rows the cluster folds
+    into it and its statistics, the fresh key row."""
+    slot = 2 * ATTN_TILE * (hd + 16)
+    if kind == "verify":
+        cap = _up(chunk, ATTN_TILE) + _up(n_fresh, ATTN_TILE)
+        fixed = 1024 + (row_tiles + 2) * 64 * hd * 2 + 4096 * row_tiles
+    else:
+        cap = _up(chunk, ATTN_TILE)
+        fixed = 8 * (hd + 8) * 2 + 8 * (hd + 16) + hd + 8 * hd * 4 + hd * (ATTN_TILE + 8) * 2 + 4 * 8 * 24 * 2 + 16 * hd * 4 + 896
+    return fixed + stages * slot + 8 * cap + _up(cap, 16)
+
+
+@dataclass(frozen=True)
+class AttnPlan:
+    kind: str  # "decode" (H4) or "verify" (H5)
+    b: int
+    hkv: int
+    rows: int  # query rows of a (slot, kv head): G, or G * kq
+    c: int  # cache columns
+    n_fresh: int  # fresh columns (rank 0 owns them)
+    split: int  # CTAs per cluster over the cache columns
+    stages: int  # ring slots
+    smem: int  # dynamic shared memory bytes of a CTA
+    row_tiles: int = 1  # H5: 64-row tiles a CTA scores against each converted K / V tile
+
+    @property
+    def rows_per_cta(self) -> int:
+        return ATTN_ROWS[self.kind] * self.row_tiles
+
+    @property
+    def row_blocks(self) -> int:
+        return -(-self.rows // self.rows_per_cta)
+
+    @property
+    def chunk(self) -> int:
+        return -(-self.c // self.split)
+
+    @property
+    def grid(self):
+        return (self.split * self.row_blocks, self.hkv, self.b)
+
+    @property
+    def ctas(self) -> int:
+        return self.split * self.row_blocks * self.hkv * self.b
+
+    def columns(self, rank: int):
+        """[c0, c1): the cache columns rank `rank` of a cluster owns."""
+        c0 = min(self.c, rank * self.chunk)
+        return c0, min(self.c, c0 + self.chunk)
+
+    def tiles(self, rank: int, n_cols=None) -> int:
+        """Ring tiles of rank `rank` over `n_cols` of its columns (all of
+        them by default; fewer under n_valid or K16's limit): its cache
+        tiles, then the fresh ones (H5's rank 0)."""
+        c0, c1 = self.columns(rank)
+        n = c1 - c0 if n_cols is None else n_cols
+        fresh = self.n_fresh if (rank == 0 and self.kind == "verify") else 0
+        return -(-n // ATTN_TILE) + -(-fresh // ATTN_TILE)
+
+    def resident(self, rank: int, n_cols=None) -> bool:
+        """Whether the CTA's tiles all fit the ring: then every copy is issued
+        before the first product and each tile is read once."""
+        return self.tiles(rank, n_cols) <= self.stages
+
+
+def attn_plan(kind: str, b: int, hkv: int, rows: int, c: int, hd: int, n_fresh: int = 0,
+              split: Optional[int] = None, stages: Optional[int] = None, row_tiles: Optional[int] = None) -> AttnPlan:
+    """The launch of H4 (kind "decode"; its one fresh column is held apart
+    from the tiles) or H5 ("verify"). The column split S doubles from 1:
+    H4's while the grid has fewer than two CTAs an SM, then while a CTA's
+    chunk does not fit its ring in the shared memory of two CTAs an SM; H5's
+    while twice the CTAs still fit two an SM (one, with two row tiles) and
+    each CTA keeps at least VERIFY_MIN_CHUNK columns (more, smaller CTAs
+    lost to their fixed cost of exchange and fold: PERF.md); and either
+    while the CTA needs more shared memory than a block has. The ring holds
+    the whole chunk when that fits two CTAs an SM (a block, with two row
+    tiles); else H5 streams it through 2 slots and H4 through the most
+    (2..MAX_STAGES) that fit. H5 takes VERIFY_ROW_TILES row tiles a
+    CTA where a (slot, kv head) has that many (hd <= 128). `split` /
+    `stages` / `row_tiles` force a candidate (tools/attn_sweep.py times
+    them)."""
+    if kind not in ATTN_ROWS:
+        raise ValueError(f"unknown attention kernel {kind!r}")
+    nf = n_fresh if kind == "verify" else 0
+    if row_tiles is None:
+        fits = kind == "verify" and hd <= 128 and rows >= VERIFY_ROW_TILES * ATTN_ROWS[kind]
+        row_tiles = VERIFY_ROW_TILES if fits else 1
+    base = b * hkv * -(-rows // (ATTN_ROWS[kind] * row_tiles))
+    forced, forced_stages, split = split, stages, 1
+    if kind == "decode":
+        while split < MAX_SPLIT and base * split < _FILL_CTAS:
+            split *= 2
+    else:  # a CTA of two row tiles (8 warps) takes an SM of its own
+        while (split < MAX_SPLIT and 2 * base * split <= _FILL_CTAS // row_tiles
+               and -(-c // (2 * split)) >= VERIFY_MIN_CHUNK):
+            split *= 2
+
+    def stages_for(sp):
+        chunk = -(-c // sp)
+        tiles = -(-chunk // ATTN_TILE) + -(-nf // ATTN_TILE)
+        whole = max(tiles, 2)
+        if attn_smem_bytes(kind, hd, whole, chunk, nf, row_tiles) <= (_RESIDENT_SMEM if row_tiles == 1 else _SMEM_LIMIT):
+            return whole, True
+        if kind == "verify":
+            return 2, False
+        fit = [s for s in range(2, MAX_STAGES + 1) if attn_smem_bytes(kind, hd, s, chunk, nf) <= _RESIDENT_SMEM]
+        return (max(fit) if fit else 2), False
+
+    if forced is not None:
+        split = forced
+    stages, whole = stages_for(split)
+    while forced is None and split < MAX_SPLIT and (
+        (kind == "decode" and not whole) or attn_smem_bytes(kind, hd, stages, -(-c // split), nf, row_tiles) > _SMEM_LIMIT
+    ):
         split *= 2
-    return split
+        stages, whole = stages_for(split)
+    if forced_stages is not None:
+        stages = forced_stages
+    smem = attn_smem_bytes(kind, hd, stages, -(-c // split), nf, row_tiles)
+    return AttnPlan(kind, b, hkv, rows, c, nf, split, stages, smem, row_tiles)
 
 
-def _attn_smem_bytes(c: int, n_fresh: int, hd: int, split: int) -> int:
-    """Shared memory of one CTA (`attn_smem_floats` in csrc/int8_kv.cu)."""
-    rows, groups, chunk = _ATTN_ROWS, 128 // (hd // 4), -(-c // split)
-    return 4 * (rows * hd + rows * (chunk + n_fresh) + groups * rows * hd + rows * hd + 2 * rows + rows * hd // 4 + rows)
+def _check_plan(name, plan, kind, b, hkv, rows, c, n_fresh):
+    _require(name, (plan.kind, plan.b, plan.hkv, plan.rows, plan.c, plan.n_fresh) == (kind, b, hkv, rows, c, n_fresh),
+             f"the launch plan {plan} is for another call")
+    _require(name, plan.split in (1, 2, 4, 8) and plan.stages >= 2 and plan.row_tiles in (1, 2),
+             f"split {plan.split} / stages {plan.stages} / row tiles {plan.row_tiles}")
+    _require(name, plan.smem <= _SMEM_LIMIT, f"capacity {c} needs more shared memory than a block has")
 
 
 # ---------------------------------------------------------------------------
@@ -177,6 +318,7 @@ def int8_decode_attn(
     layer: int,
     n_valid=None,  # (B,) int32: read only the columns below n_valid[b] (K15)
     quantize_q: bool = False,  # score with q quantized to int8 per row
+    plan: Optional[AttnPlan] = None,  # attn_plan("decode", ...) unless given
 ) -> torch.Tensor:
     """One-token GQA attention over layer `layer` of the int8 cache, the
     current token's K/V composited as one extra softmax column when given ->
@@ -191,20 +333,20 @@ def int8_decode_attn(
              f"q must be bf16 (B, Hkv, G, hd), got {qg.dtype} {tuple(qg.shape)}")
     _require(name, qg.is_contiguous(), "q must be contiguous")
     g = qg.shape[2]
-    n_fresh = 0 if fresh is None else 1
     if fresh is not None:
         _check_fresh(name, fresh, b, hkv, 1, hd)
     if n_valid is not None:
         _int32_rows(name, "n_valid", n_valid, b)
-    split = _column_split(b, hkv, g)
-    _require(name, _attn_smem_bytes(c, n_fresh, hd, split) <= _SMEM_LIMIT, f"capacity {c} needs more shared memory than a block has")
+        _require(name, fresh is None, "n_valid reads the cache alone (K15): no fresh column")
+    plan = plan or attn_plan("decode", b, hkv, g, c, hd)
+    _check_plan(name, plan, "decode", b, hkv, g, c, 0)
     out = torch.empty_like(qg)
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = load_library()
     rc = lib.padt_int8_decode_attn(
         qg.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(), vs.data_ptr(),
         ptr(k8n), ptr(ksn), ptr(v8n), ptr(vsn), valid.data_ptr(), ptr(n_valid), out.data_ptr(),
-        b, hkv, g, c, hd, int(layer), split, int(bool(quantize_q)), hd**-0.5, _stream(qg),
+        b, hkv, g, c, hd, int(layer), plan.split, plan.stages, int(bool(quantize_q)), hd**-0.5, _stream(qg),
     )
     check(lib, name, rc)
     launch_counts[name] += 1
@@ -253,6 +395,7 @@ def int8_verify_attn(
     layer: int,
     kq: int,
     write_pos=None,  # (B,) int32: the first new position, for the causal limit without fresh columns
+    plan: Optional[AttnPlan] = None,  # attn_plan("verify", ...) unless given
 ) -> torch.Tensor:
     """kq-query int8 attention over layer `layer` of the cache; with fresh
     columns, query row r sees fresh column j iff r % kq >= j; without them,
@@ -274,18 +417,19 @@ def int8_verify_attn(
     else:
         _check_fresh(name, fresh, b, hkv, kq, hd)
     n_fresh = 0 if fresh is None else kq
-    split = _column_split(b, hkv, rows)
-    _require(name, _attn_smem_bytes(c, n_fresh, hd, split) <= _SMEM_LIMIT, f"capacity {c} needs more shared memory than a block has")
+    plan = plan or attn_plan("verify", b, hkv, rows, c, hd, n_fresh)
+    _check_plan(name, plan, "verify", b, hkv, rows, c, n_fresh)
     out = torch.empty_like(qg)
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = load_library()
     rc = lib.padt_int8_verify_attn(
         qg.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(), vs.data_ptr(),
         ptr(k8n), ptr(ksn), ptr(v8n), ptr(vsn), valid.data_ptr(), None if fresh else write_pos.data_ptr(), out.data_ptr(),
-        b, hkv, rows, kq, c, hd, int(layer), split, hd**-0.5, _stream(qg),
+        b, hkv, rows, kq, c, hd, int(layer), plan.split, plan.stages, plan.row_tiles, hd**-0.5, _stream(qg),
     )
     check(lib, name, rc)
     launch_counts[name] += 1
+    verify_launches_by_kq[kq] = verify_launches_by_kq.get(kq, 0) + 1
     return out
 
 

@@ -107,11 +107,12 @@ def main() -> int:
         raise AssertionError("the profiler recorded no device time")
     ours = lambda *names: sum(v for k, v in by_name.items() if "padt::" in k and any(n in k for n in names))
     h7 = ours("gemm_kernel<true")  # gemm_sm90.cuh's int8 instances (H10's are gemm_kernel<false, ...>)
-    attn = ours("int8_attn_kernel")
+    attn = ours("decode_kernel", "verify_kernel")  # H4 / H5 (csrc/int8_kv.cu)
     tag = f"{args.model} {SLOTS} slots"
     print(f"[profile] {tag}: wall {wall_ms:.3f} ms/step unprofiled, {prof_ms:.3f} ms/step profiled; "
           f"device busy {busy:.3f} ms/step, idle {1 - busy / prof_ms:.3f} of the profiled wall; "
-          f"H7 int8_matmul {h7:.3f} ms/step ({h7 / busy:.3f} of busy); H4 attention {attn:.3f} ms/step ({card})")
+          f"H7 int8_matmul {h7:.3f} ms/step ({h7 / busy:.3f} of busy); H4 attention {attn:.3f} ms/step "
+          f"({attn / busy:.3f} of busy) ({card})")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[: TOP]:
         print(f"[profile] {tag}: {ms:8.4f} ms/step  {name[:110]}")
     return 0

@@ -408,6 +408,135 @@ def test_int8_verify_without_fresh_matches_plain(dev, b, c, kq):
     assert _err(out, ref) < TOL
 
 
+def _norm_gap(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30)).item()
+
+
+def _decode_case(dev, seed, b, c, hd, g, form):
+    """Inputs of one H4 call in `form`: "fresh" (K6), "cache" (K13 / K14),
+    "n_valid" (K15) or "qi8" (K6 with quantize_q)."""
+    from padt_tpu_torch.ops import cuda_kv as K
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    k8, ks, v8, vs, kn, ksn, vn, vsn = _int8_cache(gen, dev, 2, b, 2, c, hd, 1)
+    q = _randn(gen, (b, 2, g, hd), dev)
+    valid, nv = _valid_patterns(b, c, dev), None
+    fresh = (kn, ksn, vn, vsn) if form in ("fresh", "qi8") else (None,) * 4
+    if form == "n_valid":
+        nv, valid = _live_cache(gen, dev, b, c)
+    args = (q, k8, ks, v8, vs, *fresh, valid, 1)
+    kw = dict(n_valid=nv, quantize_q=form == "qi8")
+    return K.int8_decode_attn, K.int8_decode_attn_plain, args, kw
+
+
+def _verify_case(dev, seed, b, c, hd, kq, fresh):
+    """Inputs of one H5 call with kq fresh columns (K8) or the causal limit
+    (K16)."""
+    from padt_tpu_torch.ops import cuda_kv as K
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    k8, ks, v8, vs, kn, ksn, vn, vsn = _int8_cache(gen, dev, 2, b, 2, c, hd, kq)
+    q = _randn(gen, (b, 2, 8 * kq, hd), dev)
+    valid, wp = _valid_patterns(b, c, dev), None
+    if not fresh:
+        wp = torch.tensor([max(c // 2, 0), 30, c - kq, 1, 0][:b] + [0] * max(b - 5, 0), dtype=torch.int32, device=dev).clamp(0, max(c - kq, 0))
+        cols = torch.arange(c, device=dev)[None, :]
+        valid = valid | ((cols >= wp[:, None]) & (cols < wp[:, None] + kq))
+    f = (kn, ksn, vn, vsn) if fresh else (None,) * 4
+    return K.int8_verify_attn, K.int8_verify_attn_plain, (q, k8, ks, v8, vs, *f, valid, 1, kq), dict(write_pos=wp)
+
+
+_DECODE_FORMS = ["fresh", "cache", "n_valid", "qi8"]
+
+
+@pytest.mark.parametrize("form", _DECODE_FORMS)
+@pytest.mark.parametrize("c", [127, 128, 129])
+def test_int8_decode_tile_edges_and_reruns(dev, form, c):
+    """H4 at capacities on both sides of a 64-column tile edge, in every
+    form: within TOL of its twin and a relative norm gap of 1e-2 (K15's twin
+    rounds in its own order: 2e-2 of the largest output), and two runs give
+    the same bits (no atomics)."""
+    kern, plain, args, kw = _decode_case(dev, c, 5, c, 128, 8, form)
+    out, again = kern(*args, **kw), kern(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    ref = plain(*args, **kw)
+    tol = TOL * ref.float().abs().max().item() if form == "n_valid" else TOL
+    assert _err(out, ref) < tol and _norm_gap(out, ref) <= 1e-2
+
+
+@pytest.mark.parametrize("form", _DECODE_FORMS)
+def test_int8_decode_seven_query_heads(dev, form):
+    """G = 7 (PaDT-7B's 28 / 4 heads): the mma's eighth row is padding."""
+    kern, plain, args, kw = _decode_case(dev, 7, 8, 768, 128, 7, form)
+    out = kern(*args, **kw)
+    torch.cuda.synchronize()
+    ref = plain(*args, **kw)
+    tol = TOL * ref.float().abs().max().item() if form == "n_valid" else TOL
+    assert out.shape == ref.shape and _err(out, ref) < tol and _norm_gap(out, ref) <= 1e-2
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("kq,c", [(5, 197), (4, 127), (4, 128), (4, 129), (32, 768)])
+@pytest.mark.parametrize("fresh", [True, False])
+def test_int8_verify_head_dims_tile_edges_and_reruns(dev, hd, kq, c, fresh):
+    """H5 at hd 64 / 128 / 256, kq = 5 (rows that straddle a query head),
+    capacities on both sides of a tile edge, with fresh columns (K8) and
+    with the causal limit (K16): within TOL and a norm gap of 1e-2 of its
+    twin, two runs bit for bit."""
+    kern, plain, args, kw = _verify_case(dev, hd + kq + c, 5, c, hd, kq, fresh)
+    out, again = kern(*args, **kw), kern(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    ref = plain(*args, **kw)
+    assert _err(out, ref) < TOL and _norm_gap(out, ref) <= 1e-2
+
+
+@pytest.mark.parametrize("c,kq", [(197, 4), (768, 32)])
+def test_int8_verify_causal_limit_without_a_visible_key(dev, c, kq):
+    """K16 when a slot's first query row sees no valid column at or before
+    write_pos (slot 1: nothing valid; slot 2: only columns past
+    write_pos + kq): the kernel then reads the whole cache instead of
+    stopping at write_pos + kq, so a row with no visible key gets the V
+    rows' mean as the twin's uniform softmax does."""
+    from padt_tpu_torch.ops import cuda_kv as K
+
+    gen = torch.Generator(device=dev).manual_seed(c + kq)
+    k8, ks, v8, vs = _int8_cache(gen, dev, 2, 3, 2, c, 128, 1)[:4]
+    q = _randn(gen, (3, 2, 8 * kq, 128), dev)
+    wp = torch.tensor([c // 2, 10, 20], dtype=torch.int32, device=dev)
+    cols = torch.arange(c, device=dev)[None, :]
+    valid = (cols >= wp[:, None]) & (cols < wp[:, None] + kq)
+    valid[1] = False
+    valid[2] = cols[0] >= 20 + kq + 5
+    out = K.int8_verify_attn(q, k8, ks, v8, vs, None, None, None, None, valid, 1, kq, write_pos=wp)
+    torch.cuda.synchronize()
+    ref = K.int8_verify_attn_plain(q, k8, ks, v8, vs, None, None, None, None, valid, 1, kq, write_pos=wp)
+    assert _err(out, ref) < TOL and _norm_gap(out, ref) <= 1e-2
+    mean = (v8[1, 1].float() * vs[1, 1][..., None]).mean(dim=1)  # slot 1: every row uniform
+    assert _err(out[1], mean[:, None].expand(2, 8 * kq, 128)) < TOL
+
+
+@pytest.mark.parametrize("kind", ["decode", "verify"])
+def test_int8_attention_past_the_old_shared_memory_limit(dev, kind):
+    """A capacity the kernels before the two-sweep design refused (their
+    score row outgrew a block's shared memory): H4 at C = 60000 (8 CTAs a
+    cluster), H5 at C = 20000 with a suffix pass's 256 rows."""
+    from padt_tpu_torch.ops import cuda_kv as K
+
+    if kind == "decode":
+        kern, plain, args, kw = _decode_case(dev, 1, 3, 60000, 128, 8, "fresh")
+        plan = K.attn_plan("decode", 3, 2, 8, 60000, 128, 1)
+    else:
+        kern, plain, args, kw = _verify_case(dev, 2, 3, 20000, 128, 32, True)
+        plan = K.attn_plan("verify", 3, 2, 256, 20000, 128, 32)
+    assert plan.smem <= K._SMEM_LIMIT
+    out = kern(*args, **kw)
+    torch.cuda.synchronize()
+    ref = plain(*args, **kw)
+    assert _err(out, ref) < TOL and _norm_gap(out, ref) <= 1e-2
+
+
 @pytest.mark.parametrize("kq", [1, 32])
 def test_single_layer_stores_match_the_cpu(dev, kq):
     """K17 / K18 through `ops.kv_cache` (one-layer views of an unstacked

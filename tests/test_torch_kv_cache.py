@@ -189,12 +189,15 @@ def test_cpu_calls_take_the_twins_and_unported_forms_raise():
 
 
 def test_attention_launch_geometry():
-    """The attention kernel's column split (CTAs per cluster) fills the card
-    at decode and stays 1 for a suffix pass, and its shared memory fits a
-    Hopper block at the serve path's capacity."""
-    assert cuda_kv._column_split(8, 2, 8) == 8  # decode: 8 slots x 2 kv heads x G = 8 rows
-    assert cuda_kv._column_split(16, 2, 8 * 32) == 1  # suffix pass: kq = 32
-    assert cuda_kv._column_split(3, 2, 8 * 16) == 4
-    for split in (1, 2, 4, 8):
-        assert cuda_kv._attn_smem_bytes(768, 32, 128, split) <= cuda_kv._SMEM_LIMIT
-    assert cuda_kv._attn_smem_bytes(768, 1, 128, 8) < cuda_kv._attn_smem_bytes(768, 1, 128, 1)
+    """The attention kernels' column split (CTAs per cluster) fills the card
+    at decode and at a suffix pass (two 64-row tiles a CTA, 2 CTAs per
+    slot and kv head; a pass's CTA keeps at least 3 column tiles), and their
+    shared memory fits a Hopper block at the serve path's capacity."""
+    assert cuda_kv.attn_plan("decode", 8, 2, 8, 768, 128, 1).split == 8  # decode: 8 slots x 2 kv heads x G = 8 rows
+    sfx = cuda_kv.attn_plan("verify", 16, 2, 8 * 32, 768, 128, 32)  # suffix pass: kq = 32
+    assert sfx.split == 2 and sfx.row_tiles == 2 and sfx.ctas * sfx.row_tiles >= 256  # 8 warps on each SM
+    assert cuda_kv.attn_plan("verify", 3, 2, 8 * 16, 768, 128, 16).split == 4  # each CTA keeps >= 3 tiles
+    for kind in ("decode", "verify"):
+        for split in (1, 2, 4, 8):
+            assert cuda_kv.attn_smem_bytes(kind, 128, 2, -(-768 // split), 32) <= cuda_kv._SMEM_LIMIT
+    assert cuda_kv.attn_smem_bytes("decode", 128, 2, 96) < cuda_kv.attn_smem_bytes("decode", 128, 2, 768)
