@@ -31,11 +31,11 @@ NVCC_FLAGS = (
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     # name: argtypes (every pointer and the stream as c_void_p)
-    "padt_rope_qk": [_P, _LL, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "padt_rope_qk": [_P, _LL, _P, _LL, _P, _P, _P, _P] + [_I] * 8 + [_F, _P],
     "padt_segment_flash_fwd": [_P] * 7 + [_I] * 6 + [_LL] * 9 + [_I, _F, _P],
     "padt_flash_bwd_dq": [_P] * 9 + [_I] * 6 + [_LL] * 12 + [_I, _F, _P],
     "padt_flash_bwd_dkv": [_P] * 10 + [_I] * 6 + [_LL] * 12 + [_I, _F, _P],
-    "padt_window_slot_attn": [_P, _P, _P, _P, _P, _I, _I, _I, _I] + [_LL] * 9 + [_F, _P],
+    "padt_window_slot_attn": [_P, _P, _P, _P, _P, _I, _I, _I, _I] + [_LL] * 9 + [_F, _I, _I, _I, _P],
     "padt_int8_decode_attn": [_P] * 12 + [_I] * 9 + [_F, _P],
     "padt_int8_verify_attn": [_P] * 12 + [_I] * 10 + [_F, _P],
     "padt_store_kv_rows": [_P] * 10 + [_I] * 6 + [_P],

@@ -3,9 +3,14 @@
 | wrapper             | CUDA source             | replaces (padt_tpu/ops/pallas_attention.py) |
 |---------------------|-------------------------|---------------------------------------------|
 | `rope_qk`           | csrc/rope_qk.cu         | `_unpack_rope_kernel`, `_rope_pair_kernel`  |
+|                     |                         | and its VJP                                 |
 | `segment_flash_fwd` | csrc/segment_flash.cu   | `_vis_fwd_kernel`, `_fwd_kernel`, and the   |
 |                     |                         | k-block skip `_kblock_ranges`               |
 | `window_slot_attn`  | csrc/window_attn.cu     | `_vis_win_kernel`                           |
+
+H1 and H3 take their launch plans from pure-Python functions beside them
+(`rope_plan`, `window_plan`), which the CPU tests check at every main-path
+shape; each wrapper also takes a `plan=` to force a candidate.
 
 Each wrapper takes the plain PyTorch twin beside it (`*_plain`) for tensors
 on the CPU and only there: on a CUDA tensor it launches its kernel or raises.
@@ -28,8 +33,10 @@ valid key returns 0 in both.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ._build import check, load_library
@@ -40,11 +47,14 @@ HEAD_DIMS = (16, 32, 64, 80, 128)  # head dims the attention kernels are built f
 BIG_LSE = 1e30  # the LSE of a query row with no visible key: exp(s - lse) is 0
 
 launch_counts = {"rope_qk": 0, "segment_flash_fwd": 0, "window_slot_attn": 0}
+# H1's launches split by shape: (rows, q heads, k heads) -> launches
+rope_launches_by_shape: dict = {}
 
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+    rope_launches_by_shape.clear()
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -108,6 +118,81 @@ def _row_stride(t: torch.Tensor) -> Optional[int]:
     return rs if (b == 1 or t.stride(0) == s * rs) else None
 
 
+SMS = 132  # streaming multiprocessors of an H100
+SMEM_LIMIT = 232448  # dynamic shared memory a block may use
+ROPE_BLOCKS = (128, 64, 32)  # H1's CTA sizes where the grid gives every SM a CTA, largest first
+ROPE_DECODE_SMS = 32  # the SMs H1's loads spread over where the grid is too small for all of them
+ROPE_HPT = 2  # heads per thread where the grid still gives every SM a CTA of ROPE_BLOCKS[0] threads
+PDL = True  # H1 and H3 launch under programmatic dependent launch (tools/rope_window_times.py --sweep)
+@dataclass(frozen=True)
+class RopePlan:
+    """How csrc/rope_qk.cu runs one call: `rows` rows of `heads` (q + k)
+    heads of hd; a thread owns one 16-byte vector of 8 pairs (of vecs =
+    hd / 16 per half) and applies its tables to `hpt` (1 or 2) heads of its
+    row, heads g, g + groups, ...; `block` threads a CTA."""
+
+    rows: int
+    heads: int
+    hd: int
+    hpt: int
+    groups: int
+    block: int
+    pdl: bool = PDL  # launch under programmatic dependent launch
+
+    @property
+    def vecs(self) -> int:
+        return self.hd // 16
+
+    @property
+    def threads(self) -> int:
+        return self.rows * self.vecs * self.groups
+
+    @property
+    def ctas(self) -> int:
+        return -(-self.threads // self.block)
+
+    def units(self):
+        """(row, head, vector) numpy arrays of every unit the grid's threads
+        take, by the kernel's own mapping (thread t: row t // (vecs * groups),
+        group and vector from the rest, heads g + i * groups < heads)."""
+        t = np.arange(self.ctas * self.block, dtype=np.int64)
+        t = t[t < self.threads]
+        per_row = self.vecs * self.groups
+        row, u = t // per_row, t % per_row
+        g, v = u // self.vecs, u % self.vecs
+        h = g[:, None] + np.arange(self.hpt)[None, :] * self.groups
+        live = h < self.heads
+        n = np.broadcast_to(row[:, None], h.shape)
+        return n[live], h[live], np.broadcast_to(v[:, None], h.shape)[live]
+
+
+def rope_plan(rows: int, heads: int, hd: int, hpt: Optional[int] = None, block: Optional[int] = None,
+              pdl: bool = PDL) -> RopePlan:
+    """H1's launch plan, from tools/rope_window_times.py's sweep on an H100.
+    Heads per thread: ROPE_HPT (the tables read once for two heads) where
+    the grid still gives every SM a CTA of ROPE_BLOCKS[0] threads, else 1
+    (every decode shape). Block: the largest of ROPE_BLOCKS that gives every
+    SM a CTA; where none does (decode: a few rows), 32 or 16 threads,
+    whichever spreads the loads over ROPE_DECODE_SMS SMs. Launched under
+    programmatic dependent launch. `hpt` / `block` / `pdl` force a
+    candidate."""
+    vecs = hd // 16
+    if hpt is None:
+        hpt = ROPE_HPT if rows * vecs * -(-heads // ROPE_HPT) >= SMS * ROPE_BLOCKS[0] else 1
+    groups = -(-heads // hpt)
+    threads = rows * vecs * groups
+    if block is None:
+        block = next((c for c in ROPE_BLOCKS if -(-threads // c) >= SMS), None)
+        if block is None:
+            block = next((c for c in (32, 16) if -(-threads // c) >= ROPE_DECODE_SMS), 16)
+    return RopePlan(rows, heads, hd, hpt, groups, block, pdl)
+
+
+def _aligned_rows(t: torch.Tensor, rs: int) -> bool:
+    """16-byte row starts: an aligned base and a row stride of 8 elements."""
+    return t.data_ptr() % 16 == 0 and rs % 8 == 0
+
+
 def rope_qk(
     q: torch.Tensor,  # (B, S, Hq*hd); may be a column view of a wider buffer
     k: Optional[torch.Tensor],  # (B, S, Hk*hd) likewise, or None when Hk == 0
@@ -116,10 +201,12 @@ def rope_qk(
     num_q_heads: int,
     num_k_heads: int,
     sin_sign: float = 1.0,
+    plan: Optional[RopePlan] = None,  # rope_plan(B * S, Hq + Hk, hd) unless given
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """fp32 rotate-half rope on the q heads and k heads -> contiguous
     (q_rot (B, S, Hq*hd), k_rot (B, S, Hk*hd) or None). sin_sign -1 rotates
-    by the negated angle: the rope's VJP."""
+    by the negated angle: the rope's VJP. On the card hd must be a multiple
+    of 16 and every row of q, k, cos and sin must start 16-byte aligned."""
     name = "rope_qk"
     if _on_cpu(q, name):
         return rope_qk_plain(q, k, cos, sin, num_q_heads, num_k_heads, sin_sign)
@@ -132,15 +219,24 @@ def rope_qk(
     _require(name, cos.dtype == torch.float32 and sin.dtype == torch.float32, "cos/sin must be fp32")
     _require(name, cos.shape == (b, s, hd) and sin.shape == (b, s, hd), f"cos/sin shape {tuple(cos.shape)}")
     _require(name, cos.is_contiguous() and sin.is_contiguous(), "cos/sin must be contiguous")
-    _require(name, hd % 2 == 0 and q.shape[2] == num_q_heads * hd, f"q shape {tuple(q.shape)}")
+    _require(name, hd % 16 == 0 and hd > 0, f"head dim {hd} is not a multiple of 16 (16-byte lanes of 8 pairs)")
+    _require(name, q.shape[2] == num_q_heads * hd, f"q shape {tuple(q.shape)}")
     _require(name, (k is None) == (num_k_heads == 0), "k is None iff num_k_heads == 0")
     q_rs = _row_stride(q)
     _require(name, q_rs is not None, f"q rows not evenly strided {q.stride()}")
+    _require(name, _aligned_rows(q, q_rs), "q rows must start 16-byte aligned (aligned base, row stride a multiple of 8)")
     k_rs = 0
     if k is not None:
         _require(name, k.shape == (b, s, num_k_heads * hd), f"k shape {tuple(k.shape)}")
         k_rs = _row_stride(k)
         _require(name, k_rs is not None, f"k rows not evenly strided {k.stride()}")
+        _require(name, _aligned_rows(k, k_rs), "k rows must start 16-byte aligned (aligned base, row stride a multiple of 8)")
+    _require(name, cos.data_ptr() % 16 == 0 and sin.data_ptr() % 16 == 0, "cos/sin must be 16-byte aligned")
+    rows, heads = b * s, num_q_heads + num_k_heads
+    plan = plan or rope_plan(rows, heads, hd)
+    _require(name, (plan.rows, plan.heads, plan.hd) == (rows, heads, hd), f"the launch plan {plan} is for another call")
+    _require(name, plan.hpt in (1, 2) and plan.hpt * plan.groups >= heads and 0 < plan.block <= 256,
+             f"plan {plan}")
     q_out = torch.empty((b, s, num_q_heads * hd), dtype=q.dtype, device=q.device)
     k_out = (
         torch.empty((b, s, num_k_heads * hd), dtype=q.dtype, device=q.device) if k is not None else None
@@ -150,10 +246,13 @@ def rope_qk(
         q.data_ptr(), q_rs, None if k is None else k.data_ptr(), k_rs,
         cos.data_ptr(), sin.data_ptr(), q_out.data_ptr(),
         None if k_out is None else k_out.data_ptr(),
-        b * s, num_q_heads, num_k_heads, hd, float(sin_sign), _stream(q),
+        rows, num_q_heads, num_k_heads, hd, plan.hpt, plan.groups, plan.block, int(plan.pdl), float(sin_sign),
+        _stream(q),
     )
     check(lib, name, rc)
     launch_counts[name] += 1
+    key = (rows, num_q_heads, num_k_heads)
+    rope_launches_by_shape[key] = rope_launches_by_shape.get(key, 0) + 1
     return q_out, k_out
 
 
@@ -301,12 +400,74 @@ def window_slot_plain(q, k, v, seg, scale: float):
     return out.permute(0, 1, 3, 2, 4).reshape(b, s, h, d).to(q.dtype)
 
 
+WINDOW_STAGES = 2  # H3's ring stages: one item in flight per consumer warpgroup (always even)
+WINDOW_CTAS = SMS  # H3's persistent CTAs: one an SM
+
+
+def window_smem_bytes(hd: int, stages: int) -> int:
+    """Dynamic shared memory of one H3 CTA (Tiles<HD>::smem): the ring of
+    Q, K and V tiles, two output staging tiles, the ring's barriers, and
+    1024 bytes of alignment slack."""
+    tile = WINDOW * hd * 2
+    return stages * 3 * tile + 2 * tile + 2 * stages * 8 + 1024
+
+
+@dataclass(frozen=True)
+class WindowPlan:
+    """How csrc/window_attn.cu walks one call: `ctas` persistent CTAs over
+    the items (slot, head, batch row), item i = r * ctas + cta for r = 0,
+    1, ..., taken by consumer warpgroup r % 2 from ring stage r % stages."""
+
+    b: int
+    s: int
+    h: int
+    hd: int
+    ctas: int
+    stages: int
+    pdl: bool = PDL  # launch under programmatic dependent launch
+
+    @property
+    def items(self) -> int:
+        return self.b * (self.s // WINDOW) * self.h
+
+    @property
+    def smem(self) -> int:
+        return window_smem_bytes(self.hd, self.stages)
+
+    def coords(self, i: int) -> Tuple[int, int, int]:
+        """(slot, head, batch row) of item i, by the kernel's own formula."""
+        n_slots = self.s // WINDOW
+        return (i // self.h) % n_slots, i % self.h, i // (self.h * n_slots)
+
+    def walk(self, cta: int):
+        """[(item, consumer warpgroup, stage)] of CTA `cta`, in its order."""
+        return [(i, r % 2, r % self.stages) for r, i in enumerate(range(cta, self.items, self.ctas))]
+
+
+def window_plan(b: int, s: int, h: int, hd: int, ctas: Optional[int] = None, stages: Optional[int] = None,
+                pdl: bool = PDL) -> WindowPlan:
+    """H3's launch plan, from tools/rope_window_times.py's sweep on an H100:
+    WINDOW_CTAS persistent CTAs (at most one per item), each with a ring of
+    WINDOW_STAGES stages, or 2 where those do not fit a block's shared
+    memory. The count of stages is even: stage s is read by consumer
+    warpgroup s % 2 only (csrc/window_attn.cu). Launched under
+    programmatic dependent launch. `ctas` / `stages` / `pdl` force a
+    candidate."""
+    items = b * (s // WINDOW) * h
+    if ctas is None:
+        ctas = max(1, min(items, WINDOW_CTAS))
+    if stages is None:
+        stages = WINDOW_STAGES if window_smem_bytes(hd, WINDOW_STAGES) <= SMEM_LIMIT else 2
+    return WindowPlan(b, s, h, hd, ctas, stages, pdl)
+
+
 def window_slot_attn(
     q: torch.Tensor,  # (B, S, H, hd), S a multiple of 64
     k: torch.Tensor,
     v: torch.Tensor,
     seg: torch.Tensor,  # (B, S) int32; -1 = pad
     scale: float,
+    plan: Optional[WindowPlan] = None,  # window_plan(B, S, H, hd) unless given
 ) -> torch.Tensor:
     """Attention inside each 64-token window slot, keys masked by seg >= 0.
     Returns contiguous (B, S, H, hd)."""
@@ -322,15 +483,19 @@ def window_slot_attn(
     _require(name, k.shape == q.shape and v.shape == q.shape, "q/k/v shapes differ")
     _require(name, all(_vec_ok(t) for t in (q, k, v)), "q/k/v need unit last stride, 16-byte aligned data and strides that are multiples of 8")
     _require(name, seg.dtype == torch.int32 and seg.shape == (b, s) and seg.is_contiguous(), "seg must be contiguous int32 (B, S)")
+    _require(name, seg.data_ptr() % 16 == 0, "seg must be 16-byte aligned")
+    plan = plan or window_plan(b, s, h, hd)
+    _require(name, (plan.b, plan.s, plan.h, plan.hd) == (b, s, h, hd), f"the launch plan {plan} is for another call")
+    _require(name, plan.ctas > 0 and plan.stages >= 2 and plan.stages % 2 == 0 and plan.smem <= SMEM_LIMIT,
+             f"plan {plan}: the ring needs an even count of stages that fits a block")
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
     lib = load_library()
     rc = lib.padt_window_slot_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), out.data_ptr(),
-        b, s, h, hd,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        float(scale), _stream(q),
+        b, s, h, hd, *_tma_strides(q), *_tma_strides(k), *_tma_strides(v),
+        float(scale), plan.ctas, plan.stages, int(plan.pdl), _stream(q),
     )
     check(lib, name, rc)
     launch_counts[name] += 1

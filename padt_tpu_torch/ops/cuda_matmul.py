@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from ._build import check, load_library
-from .cuda_attention import _no_graph_cut, _require, _same_device, _stream
+from .cuda_attention import SMEM_LIMIT, SMS, _no_graph_cut, _require, _same_device, _stream
 
 launch_counts = {"stream_matmul": 0}
 
@@ -31,10 +31,8 @@ launch_counts = {"stream_matmul": 0}
 DECODE_M = 128  # M up to this takes swap-AB (out^T = W^T x^T)
 SWAP_NT = (8, 16, 32, 64, 96, 128)  # wgmma's n under swap-AB: M rounded up to one of these
 BK = 64  # K rows per stage
-SMS = 132  # streaming multiprocessors of an H100
 MAX_CLUSTER = 8  # the largest portable thread-block cluster: the most K splits
 MAX_STAGES = 8
-SMEM_LIMIT = 232448  # dynamic shared memory a block may use
 SM_SMEM = 228 * 1024  # shared memory of an SM; each CTA also takes 1 KB of it
 SWAP_SMEM = 113 * 1024  # decode: at least two CTAs per SM
 DECODE_CTAS = {False: 1, True: 2}  # CTAs per SM the K splits aim at under swap-AB: H10, H7

@@ -8,7 +8,7 @@ PaDT-3B, int8 for PaDT-7B, random from a seed; 46x46-patch images, prompt
 then one under `torch.profiler` and prints, per step: the device's busy time (the
 kernels' device times summed: one stream, so they do not overlap), its idle
 share of the profiled wall, the kernels by device time, and the share of
-H7 (`int8_matmul`) and of the attention kernels. Each line names the card
+H7 (`int8_matmul`), of the attention kernels and of H1 (`rope_qk`). Each line names the card
 and its power limit. Needs CUDA.
 """
 
@@ -108,11 +108,12 @@ def main() -> int:
     ours = lambda *names: sum(v for k, v in by_name.items() if "padt::" in k and any(n in k for n in names))
     h7 = ours("gemm_kernel<true")  # gemm_sm90.cuh's int8 instances (H10's are gemm_kernel<false, ...>)
     attn = ours("decode_kernel", "verify_kernel")  # H4 / H5 (csrc/int8_kv.cu)
+    rope = ours("rope_qk_kernel")  # H1 (csrc/rope_qk.cu): one launch per layer of a step
     tag = f"{args.model} {SLOTS} slots"
     print(f"[profile] {tag}: wall {wall_ms:.3f} ms/step unprofiled, {prof_ms:.3f} ms/step profiled; "
           f"device busy {busy:.3f} ms/step, idle {1 - busy / prof_ms:.3f} of the profiled wall; "
           f"H7 int8_matmul {h7:.3f} ms/step ({h7 / busy:.3f} of busy); H4 attention {attn:.3f} ms/step "
-          f"({attn / busy:.3f} of busy) ({card})")
+          f"({attn / busy:.3f} of busy); H1 rope {rope:.3f} ms/step ({rope / busy:.3f} of busy) ({card})")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[: TOP]:
         print(f"[profile] {tag}: {ms:8.4f} ms/step  {name[:110]}")
     return 0

@@ -43,23 +43,79 @@ def _tables(b, s, hd, dev, g):
     return vision_rope_cos_sin(pos, pos.flip(-1), hd)
 
 
-@pytest.mark.parametrize("b,s,hq,hk,hd,fused", [(2, 300, 4, 4, 80, True), (2, 77, 4, 2, 128, False), (3, 1, 4, 2, 128, False)])
-def test_rope_qk_matches_plain(dev, b, s, hq, hk, hd, fused):
-    g = torch.Generator(device=dev).manual_seed(0)
+def _bf16_ulp(x: float) -> float:
+    """The spacing of bf16 numbers (8 significant bits) at magnitude x > 0."""
+    return 2.0 ** (math.floor(math.log2(max(x, 2.0**-126))) - 7)
+
+
+def _within_one_ulp(out, ref):
+    """Every element within one bf16 ulp of the largest reference output:
+    the kernel rounds once, as its twin does, from a product summed in
+    another order."""
+    return _err(out, ref) <= _bf16_ulp(ref.float().abs().max().item())
+
+
+# (batch, seq): rows 1, 3 and 8 (decode), 16, 154 and 600 (this test's earlier cases), and 4608 (the
+# vision tower's 2x2304)
+ROPE_ROWS = [(1, 1), (3, 1), (8, 1), (2, 8), (2, 77), (2, 300), (2, 2304)]
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("b,s", ROPE_ROWS)
+def test_rope_qk_matches_plain(dev, b, s, hd):
+    """H1 at every head dim and row count against its twin, within one bf16
+    ulp of the largest output: q/k as column views of a fused qkv buffer
+    and as tensors of their own, q alone (k None), and the VJP (sin
+    negated); the launch count moves once per call, under its shape."""
+    g = torch.Generator(device=dev).manual_seed(hd + s)
+    hq, hk = (16, 16) if s > 1000 else (4, 2)
     cos, sin = _tables(b, s, hd, dev, g)
-    if fused:  # q/k as column views of a fused (B, S, 3*H*hd) buffer
-        qkv = _randn(g, (b, s, (hq + 2 * hk) * hd), dev)
-        q, k = qkv[..., : hq * hd], qkv[..., hq * hd : (hq + hk) * hd]
-    else:
-        q, k = _randn(g, (b, s, hq * hd), dev), _randn(g, (b, s, hk * hd), dev)
-    n0 = C.launch_counts["rope_qk"]
-    qr, kr = C.rope_qk(q, k, cos, sin, hq, hk)
+    qkv = _randn(g, (b, s, (hq + 2 * hk) * hd), dev)
+    views = (qkv[..., : hq * hd], qkv[..., hq * hd : (hq + hk) * hd])
+    own = (_randn(g, (b, s, hq * hd), dev), _randn(g, (b, s, hk * hd), dev))
+    for q, k in (views, own):
+        for sign in (1.0, -1.0):
+            n0, m0 = C.launch_counts["rope_qk"], C.rope_launches_by_shape.get((b * s, hq, hk), 0)
+            qr, kr = C.rope_qk(q, k, cos, sin, hq, hk, sin_sign=sign)
+            torch.cuda.synchronize()
+            assert C.launch_counts["rope_qk"] == n0 + 1 and C.rope_launches_by_shape[(b * s, hq, hk)] == m0 + 1
+            pq, pk = C.rope_qk_plain(q, k, cos, sin, hq, hk, sin_sign=sign)
+            assert _within_one_ulp(qr, pq) and _within_one_ulp(kr, pk)
+            assert _err(qr, pq) < TOL and _err(kr, pk) < TOL
+            qo, none = C.rope_qk(q, None, cos, sin, hq, 0, sin_sign=sign)
+            assert none is None and _within_one_ulp(qo, pq)
+
+
+@pytest.mark.parametrize("hpt,block", [(1, 16), (2, 64), (1, 256), (2, 128)])
+def test_rope_qk_every_plan(dev, hpt, block):
+    """Both instances of the kernel (1 and 2 heads per thread) at block
+    sizes of 16-256 give the twin's output (18 = 16 + 2 heads)."""
+    g = torch.Generator(device=dev).manual_seed(hpt)
+    b, s, hq, hk, hd = 2, 77, 16, 2, 128
+    cos, sin = _tables(b, s, hd, dev, g)
+    q, k = _randn(g, (b, s, hq * hd), dev), _randn(g, (b, s, hk * hd), dev)
+    plan = C.rope_plan(b * s, hq + hk, hd, hpt=hpt, block=block)
+    qr, kr = C.rope_qk(q, k, cos, sin, hq, hk, plan=plan)
     torch.cuda.synchronize()
-    assert C.launch_counts["rope_qk"] == n0 + 1
     pq, pk = C.rope_qk_plain(q, k, cos, sin, hq, hk)
-    assert _err(qr, pq) < TOL and _err(kr, pk) < TOL
-    qo, none = C.rope_qk(q, None, cos, sin, hq, 0)
-    assert none is None and _err(qo, pq) < TOL
+    assert _within_one_ulp(qr, pq) and _within_one_ulp(kr, pk)
+
+
+def test_rope_qk_refuses_unaligned_rows(dev):
+    """16-byte lanes: a view that starts off a 16-byte boundary, or whose
+    rows are not 16 bytes apart, raises; nothing falls back."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    b, s, h, hd = 2, 8, 2, 64
+    cos, sin = _tables(b, s, hd, dev, g)
+    buf = _randn(g, (b, s, 2 * h * hd + 8), dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        C.rope_qk(buf[..., 1 : 1 + h * hd], None, cos, sin, h, 0)  # starts 2 bytes in
+    odd = _randn(g, (b, s, h * hd + 4), dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        C.rope_qk(odd[..., : h * hd], None, cos, sin, h, 0)  # rows 8 bytes off the grid
+    with pytest.raises(ValueError, match="multiple of 16"):
+        c8, s8 = _tables(b, s, 8, dev, g)
+        C.rope_qk(buf[..., :16], None, c8, s8, 2, 0)
 
 
 @pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
@@ -202,20 +258,80 @@ def test_segment_flash_gqa_groups(dev, h, hkv):
     _lse_close(lse, ref_lse)
 
 
-@pytest.mark.parametrize("hd", [16, 80, 128])
+WINDOW_GRIDS = [(1, 20, 28), (1, 14, 14), (1, 8, 8), (1, 28, 20), (1, 12, 16), (1, 16, 12), (1, 10, 10), (1, 22, 18)]
+
+
+def _norm_gap(out, ref):
+    return ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
 def test_window_slot_matches_plain(dev, hd):
+    """H3 at B = 8 and every head dim, q/k/v strided views of one fused qkv
+    buffer, against its twin: within 2e-2 of the largest output and a 1e-2
+    relative norm gap; a slot with no valid key gives exactly 0; two runs
+    are bit-identical."""
     g = torch.Generator(device=dev).manual_seed(hd)
-    b, h = 2, 4
-    geo = vision_geometry([(1, 20, 28), (1, 14, 14)], 768)
+    h = 4
+    geo = vision_geometry(WINDOW_GRIDS, 768)
     assert geo.pack_index is not None
-    seg = torch.as_tensor(geo.seg_win, device=dev)
-    s = seg.shape[1]
+    seg = torch.as_tensor(geo.seg_win, device=dev).clone()
+    b, s = seg.shape
+    assert b == 8
+    seg[3, 64:128] = -1  # a slot with no valid key
     qkv = _randn(g, (b, s, 3 * h * hd), dev)
     q, k, v = (qkv[..., i * h * hd : (i + 1) * h * hd].unflatten(-1, (h, hd)) for i in range(3))
     out = C.window_slot_attn(q, k, v, seg, hd**-0.5)
     torch.cuda.synchronize()
     ref = C.window_slot_plain(q, k, v, seg, hd**-0.5)
-    assert _err(out, ref) < TOL
+    assert _err(out, ref) < TOL and _err(out, ref) <= TOL * ref.float().abs().max().item()
+    assert _norm_gap(out, ref) <= 1e-2
+    assert float(out[3, 64:128].float().abs().max()) == 0.0 and float(ref[3, 64:128].float().abs().max()) == 0.0
+    again = C.window_slot_attn(q, k, v, seg, hd**-0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("ctas", [1, 7, 132, 500])
+def test_window_slot_every_grid(dev, ctas):
+    """Any number of persistent CTAs walks every item once: fewer CTAs than
+    items (each CTA's two warpgroups take many items), and more than items."""
+    g = torch.Generator(device=dev).manual_seed(ctas)
+    b, s, h, hd = 2, 448, 3, 80
+    q, k, v = (_randn(g, (b, s, h, hd), dev) for _ in range(3))
+    seg = torch.zeros((b, s), dtype=torch.int32, device=dev)
+    seg[0, 100:140] = -1
+    seg[1, 384:] = -1  # the last slot of row 1: no valid key
+    out = C.window_slot_attn(q, k, v, seg, hd**-0.5, plan=C.window_plan(b, s, h, hd, ctas=ctas))
+    torch.cuda.synchronize()
+    ref = C.window_slot_plain(q, k, v, seg, hd**-0.5)
+    assert _err(out, ref) < TOL and _err(out, ref) <= TOL * ref.float().abs().max().item()
+    assert _norm_gap(out, ref) <= 1e-2
+    assert float(out[1, 384:].float().abs().max()) == 0.0
+
+
+def test_window_slot_plans_agree_bit_for_bit(dev):
+    """At the train step's tower shape (8x2304, 16 heads of 80, v a view of
+    the fused qkv) every launch plan, run many times in a row, gives the
+    default plan's output bit for bit: an item's arithmetic does not depend
+    on which CTA, warpgroup or ring stage takes it. A ring of an odd count
+    of stages is refused (its warpgroups would alternate on a stage)."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    b, s, h, hd = 8, 2304, 16, 80
+    seg = torch.as_tensor(vision_geometry([(1, 46, 46)] * b, s).seg_win, device=dev)
+    qkv = _randn(g, (b, s, 3 * h * hd), dev)
+    q, k = _randn(g, (b, s, h, hd), dev), _randn(g, (b, s, h, hd), dev)
+    v = qkv[..., 2 * h * hd :].unflatten(-1, (h, hd))
+    ref = C.window_slot_attn(q, k, v, seg, hd**-0.5)
+    torch.cuda.synchronize()
+    assert _err(ref, C.window_slot_plain(q, k, v, seg, hd**-0.5)) <= TOL * 0.1
+    for ctas, stages in [(110, 2), (110, 4), (100, 6), (66, 4), (132, 2), (132, 6), (97, 4)]:
+        plan = C.window_plan(b, s, h, hd, ctas=ctas, stages=stages)
+        outs = [C.window_slot_attn(q, k, v, seg, hd**-0.5, plan=plan) for _ in range(20)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, ref) for o in outs), (ctas, stages)
+    with pytest.raises(ValueError, match="even"):
+        C.window_slot_attn(q, k, v, seg, hd**-0.5, plan=C.window_plan(b, s, h, hd, ctas=110, stages=3))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
