@@ -31,12 +31,14 @@ one process per source, into build/padt_tpu_torch/), then:
      kernel's share of its bound; [gqa]: H2 at its GQA shapes
      against one kv head per query head, warm and from HBM (logged); [ptxas]:
      the registers and spill bytes of every H8 / H9 instance, every H7 /
-     H10 GEMM instance, every H4 / H5 instance and every H1 / H3 instance
-     from the build's ptxas report (a spill fails the run, and so does an
+     H10 GEMM instance, every H4 / H5 instance, every H1 / H3 instance and
+     H6 from the build's ptxas report (a spill fails the run, and so does an
      H4 / H5 / H3 instance with no tensor-core product in its SASS: HMMA
-     and, for QI8, IMMA in H4, HGMMA in H5 and H3); [bwd]: per shape, H8 + H9 against SDPA's whole backward, and H8 /
-     H9 over the vision layouts (seg_full and seg_win, q/k/v views of the
-     fused qkv) as yardsticks;
+     and, for QI8, IMMA in H4, HGMMA in H5 and H3); [bwd]: per shape, H8 + H9 against SDPA's whole backward; the
+     trained tower's kernels at its 8 x 2304 (H2 with its LSE and H8 /
+     H9 over seg_full and over the slot ids seg_win, q/k/v views of the
+     fused qkv), and H8 / H9 at 2 x 2304, where they were first timed, as
+     yardsticks;
   3. [forms]: drives the older forms through `ops.kv_cache` (store-then-
      attend over the 36 layers, unstacked and layer=, n_valid) with the
      launch counters reset before and read after, exact launches, and holds
@@ -47,10 +49,12 @@ one process per source, into build/padt_tpu_torch/), then:
      again with int8 weights (`quantize_params` + `pack_inference_params` run
      on the card, every text-layer product through H7), the QI8 step's
      greedy tokens equal wherever the CPU's top-2 margin exceeds the logit
-     error; then `padt_loss` with its gradients (frozen tower, all four
-     losses) on the card in bf16 against the float32 CPU path (loss within
-     5e-2 relative, each trainable leaf's gradient within 0.1 in relative
-     norm, the whole gradient's cosine at least 0.995);
+     error; then `padt_loss` with its gradients (all four losses, the tower
+     frozen and then trained, H9 in every text layer and tower block) on
+     the card in bf16 against the float32 CPU path (loss within 5e-2
+     relative, each trainable leaf's gradient, every tower leaf's
+     included, within 0.1 in relative norm, the whole gradient's cosine at
+     least 0.995);
   5. runs PaDT-3B REC inference through `InferenceEngine.run_batch` (random
      weights from a seeded generator, 4 prompts over 644px-class images of
      46x46 patches, 32 new tokens, bf16 KV) with the launch counters reset
@@ -81,7 +85,13 @@ one process per source, into build/padt_tpu_torch/), then:
      trainable text leaf moved (or, for the norm weights of 1.0 that an
      update this small cannot move in bf16, reached by a gradient), the
      tower bitwise unchanged, and prints s/step, tokens/s, MFU and peak
-     memory;
+     memory; then [train-tower]: 3 more steps on the same weights with
+     the tower trained (TrainArgs' default; AdamW, per-block remat): exact
+     launches per step (H1 3, H2 2, H8 and H9 once in every text layer and
+     tower block, the decoder's 12 H1, no H3), finite positive losses and
+     grad norms, every tower leaf moved (or, a bf16 one, reached by a
+     gradient), peak memory under 80 GB; prints s/step, tokens/s, MFU
+     (the tower counted 3x) and the peak;
   9. [7b]: frees PaDT-3B, builds PaDT-7B at full depth and width with int8
      packed text-layer weights on the card (`init_padt_params_quantized`,
      seeded), holds H7 against its twin at the 7B products' shapes (M = 4
@@ -96,9 +106,9 @@ one process per source, into build/padt_tpu_torch/), then:
      pass, exactly 4 x 36 H10 launches per pass, each output as close to the
      float32 loop as twice the torch variant's; then H10's kernel lines at
      the four products, fused and unfused;
- 11. prints the yardstick lines' JSON (layouts and shapes no path runs
-     yet: H2 over seg_win, H8 / H9 at PaDT-7B's heads and over seg_full
-     and seg_win; launches 0), the kernels'
+ 11. prints the yardstick lines' JSON (shapes no path runs: H2 over
+     seg_win and H8 / H9 over seg_full and seg_win at 2 x 2304, H8 / H9 at
+     PaDT-7B's heads, H1 at earlier PRs' shapes; launches 0), the kernels'
      JSON line, then the result line
      {"ok": true, "device": {...}} last.
 Any failure raises, and the script exits non-zero without the result line.
@@ -126,6 +136,7 @@ TINY_REL_TOL = 5e-2  # tiny model in bf16 with kernels vs float32 plain path
 TINY_GRAD_REL_TOL = 0.1  # each trainable leaf's gradient, relative norm, bf16 card vs float32 CPU
 TINY_GRAD_COS = 0.995  # cosine of the whole gradient, bf16 card vs float32 CPU
 TRAIN_STEPS = 4
+TRAIN_TOWER_STEPS = 3  # [train-tower]: steps with the tower trained
 TRAIN_BATCH, TRAIN_LEN = 8, 640 + 64  # the train step: prompt bucket 640 + completion bucket 64
 GRID = (1, 46, 46)  # a 644x644 image in 14px patches
 PATCHES = 2304
@@ -245,7 +256,9 @@ def measure(cases, card):
         # each output against its own largest value, so a small output (dk beside dv) is not held to the other's
         errs = [(a.float() - r.float()).abs().max().item() for a, r in zip(outs, refs)]
         tops = [r.float().abs().max().item() for r in refs]
-        tols = [c["tol"] * (t if c.get("relative") else 1.0) for t in tops]
+        rel = c.get("relative", False)  # one flag, or one per output
+        rel = rel if isinstance(rel, tuple) else (rel,) * len(tops)
+        tols = [c["tol"] * (t if r else 1.0) for t, r in zip(tops, rel)]
         if c.get("ulp"):  # and one bf16 ulp of the largest output: the kernel rounds as its twin does
             tols = [min(tol, bf16_ulp(t)) for tol, t in zip(tols, tops)]
         for i, (e, t) in enumerate(zip(errs, tols)):
@@ -604,10 +617,12 @@ def _train_cases(dev, rnd, b, l, h, hkv, hd, tag, names=("segment_flash_fwd", "r
     return [cases[n] for n in names]
 
 
-def _vision_bwd_cases(q, k, v, g, seg, what):
-    """H8 and H9 at the vision tower's shape (2x2304, 16 heads of 80,
+def _vision_bwd_cases(q, k, v, g, seg, what, path=None):
+    """H8 and H9 at a vision tower's shape (B x 2304, 16 heads of 80,
     non-causal) on one of its layouts, q/k/v views of the fused qkv buffer,
-    from H2's LSE; yardsticks (path None): no path trains the tower yet."""
+    from H2's LSE: the trained tower's backward at 8 x 2304 (path
+    "train_tower"), at 2 x 2304, where they were first timed, as
+    yardsticks (path None)."""
     import torch.nn.functional as F
 
     from padt_tpu_torch.ops import cuda_attention as C
@@ -623,17 +638,38 @@ def _vision_bwd_cases(q, k, v, g, seg, what):
     sd_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None], scale=scale)
     sdpa_bwd = lambda: torch.autograd.grad(sd_out, (qt, kt, vt), g.transpose(1, 2), retain_graph=True)
     reads = nbytes(q, k, v, g, lse, delta, seg)
-    shape = f"vision backward 2x2304x16x80 on {what}, q/k/v views of the fused qkv"
+    shape = f"vision backward {b}x{s}x{h}x{hd} on {what}, q/k/v views of the fused qkv"
     return [
-        dict(name="flash_bwd_dq", path=None, source="flash_bwd.cu", replaces="padt_tpu/ops/pallas_attention.py:348",
+        dict(name="flash_bwd_dq", path=path, source="flash_bwd.cu", replaces="padt_tpu/ops/pallas_attention.py:348",
              tol=TOL, relative=True, norm=True, shape=shape + ", dq",
              kern=lambda: FB.flash_bwd_dq(*args), plain=lambda: FB.flash_bwd_dq_plain(*args), library=sdpa_bwd,
              bound=(reads + nbytes(q), 6 * hd * h * pairs, BF16_TENSOR_FLOPS)),
-        dict(name="flash_bwd_dkv", path=None, source="flash_bwd.cu", replaces="padt_tpu/ops/pallas_attention.py:392",
+        dict(name="flash_bwd_dkv", path=path, source="flash_bwd.cu", replaces="padt_tpu/ops/pallas_attention.py:392",
              tol=TOL, relative=True, norm=True, shape=shape + ", dk and dv",
              kern=lambda: FB.flash_bwd_dkv(*args), plain=lambda: FB.flash_bwd_dkv_plain(*args), library=sdpa_bwd,
              bound=(reads + nbytes(k, v), 8 * hd * h * pairs, BF16_TENSOR_FLOPS)),
     ]
+
+
+def _vision_lse_case(q, k, v, seg, what):
+    """H2 with its LSE on a layout of the trained tower (8 x 2304, 16 heads
+    of 80, non-causal; the rotated q/k, v a view of the fused qkv): the
+    output held to 2e-2 of its largest value, the LSE to 2e-2 absolute, on
+    the rows that see a key (a pad row gives 0 and LSE 1e30 in both)."""
+    from padt_tpu_torch.ops import cuda_attention as C
+
+    b, s, h, hd = q.shape
+    pairs, mask = _visible_pairs(seg, seg, False)
+    scale = hd**-0.5
+    live = (seg >= 0)[:, None, :]  # (B, 1, S)
+    view = lambda r: (r[0], torch.where(live, r[1], torch.zeros_like(r[1])))
+    return dict(name="segment_flash_fwd", path="train_tower", source="segment_flash.cu",
+                replaces="padt_tpu/ops/pallas_attention.py:769", tol=TOL, relative=(True, False), view=view,
+                shape=f"vision layer {b}x{s}x{h}x{hd} on {what}, with its LSE (the trained tower's forward)",
+                kern=lambda: C.segment_flash_fwd(q, k, v, seg, seg, False, scale, return_lse=True),
+                plain=lambda: C.segment_flash_plain(q, k, v, seg, seg, False, scale, return_lse=True),
+                library=_sdpa(q, k, v, mask[:, None], scale),
+                bound=(2 * nbytes(q) + nbytes(k, v, seg) + b * h * s * 4, 4 * hd * h * pairs, BF16_TENSOR_FLOPS))
 
 
 def report_bwd_pairs(entries, card):
@@ -660,8 +696,8 @@ def _sass(fn, so):
 
 def report_ptxas():
     """[ptxas]: registers and spill bytes of every H8 / H9 instance, every
-    H7 / H10 GEMM instance (gemm_sm90.cuh), every H4 / H5 instance and every
-    H1 / H3 instance, from the build's ptxas report; any spill fails the
+    H7 / H10 GEMM instance (gemm_sm90.cuh), every H4 / H5 instance, every
+    H1 / H3 instance and H6, from the build's ptxas report; any spill fails the
     run, and so does an H4 / H5 / H3 instance whose SASS has no tensor-core
     product (H4's HMMA, and IMMA for its int8 x int8 scores; H5's and H3's
     HGMMA)."""
@@ -670,7 +706,7 @@ def report_ptxas():
     from padt_tpu_torch.ops import _build
 
     so = _build.build()
-    seen = {"bwd": 0, "gemm": 0, "kv": 0, "rope": 0, "win": 0}
+    seen = {"bwd": 0, "gemm": 0, "kv": 0, "rope": 0, "win": 0, "store": 0}
     for fn, (regs, st, ld) in sorted(_build.resource_usage().items()):
         mma = ()
         if m := re.search(r"(dq_kernel|dkv_kernel)ILi(\d+)ELb([01])E", fn):
@@ -694,6 +730,9 @@ def report_ptxas():
         elif m := re.search(r"window_slot_kernelILi(\d+)EE", fn):
             seen["win"] += 1
             what, mma = f"H3 window_slot_attn hd {m.group(1)}", ("HGMMA",)
+        elif m := re.search(r"store_rows_flat_kernelILi(\d+)EE", fn):
+            seen["store"] += 1
+            what = f"H6 store_kv_rows, {m.group(1)} row(s) a thread"
         else:
             continue
         counts = ""
@@ -708,8 +747,8 @@ def report_ptxas():
             raise AssertionError(f"{what} spills ({st} / {ld} bytes)")
     # H8 / H9: 5 head dims x causal or not; H7 / H10: 6 swap-AB n and one prefill tile each; H4: 5 head dims x
     # bf16 or int8 scores, H5: 4 head dims x one or two row tiles, and hd 256; H1: 1 or 2 heads a thread;
-    # H3: 5 head dims
-    want = {"bwd": 2 * 2 * 5, "gemm": 2 * (6 + 1), "kv": 5 * 2 + 4 * 2 + 1, "rope": 2, "win": 5}
+    # H3: 5 head dims; H6: 1 or 2 rows a thread
+    want = {"bwd": 2 * 2 * 5, "gemm": 2 * (6 + 1), "kv": 5 * 2 + 4 * 2 + 1, "rope": 2, "win": 5, "store": 2}
     if seen != want:
         raise AssertionError(f"ptxas reported {seen} instances, expected {want}")
 
@@ -750,15 +789,15 @@ def phase_kernels(dev, card):
 
     c3, c7 = padt_3b().text, padt_7b().text
 
-    def tower(n):  # (q view, k view, v view of a fused (n, 2304, 3 * 16 * 80) qkv, cos, sin, seg_win) of n images
+    def tower(n):  # (q, k, v views of a fused (n, 2304, 3 * 16 * 80) qkv, cos, sin, seg_win, seg_full) of n images
         g_n = vision_geometry([GRID] * n, PATCHES)
         c_n, s_n = vision_rope_cos_sin(T(g_n.hpos), T(g_n.wpos), 80)
         qkv_n = rnd(n, s, 3 * h * hd)
-        return (*(qkv_n[..., i * h * hd : (i + 1) * h * hd] for i in range(3)), c_n, s_n, T(g_n.seg_win))
+        return (*(qkv_n[..., i * h * hd : (i + 1) * h * hd] for i in range(3)), c_n, s_n, T(g_n.seg_win), T(g_n.seg_full))
 
     k1 = "padt_tpu/ops/pallas_attention.py:700"
-    bq, bk, _, bcos, bsin, _ = tower(BATCH)  # run_batch's tower: BATCH images
-    tq8, tk8, tv8, tcos8, tsin8, tseg8 = tower(TRAIN_BATCH)  # the train step's frozen tower
+    bq, bk, _, bcos, bsin, _, _ = tower(BATCH)  # run_batch's tower: BATCH images
+    tq8, tk8, tv8, tcos8, tsin8, tseg8, tfull8 = tower(TRAIN_BATCH)  # the train step's tower
     tq8r, tk8r = C.rope_qk(tq8, tk8, tcos8, tsin8, h, h)
     tw_mask = (win[:, None] == win[None, :])[None] & (tseg8[:, None, :] >= 0)
     tw_pairs = int(tw_mask.sum())
@@ -804,8 +843,8 @@ def phase_kernels(dev, card):
              plain=lambda: C.window_slot_plain(u(tq8r), u(tk8r), u(tv8), tseg8, hd**-0.5),
              library=_sdpa(u(tq8r), u(tk8r), u(tv8), tw_mask[:, None], hd**-0.5),
              bound=(4 * nbytes(tq8) + nbytes(tseg8), 4 * hd * h * tw_pairs, BF16_TENSOR_FLOPS)),
-        # H2 on the window layout, the segment-tile skip's yardstick (it visits 1 of 18 key tiles per
-        # query tile); no path runs H2 on seg_win yet (run_batch's window layers take H3): path None
+        # H2 on the window layout at 2 x 2304, the segment-tile skip's yardstick (it visits 1 of 18 key
+        # tiles per query tile); the trained tower's 8 x 2304 line is below
         dict(name="segment_flash_fwd", path=None, source="segment_flash.cu", replaces="padt_tpu/ops/pallas_attention.py:769",
              tol=TOL, relative=True, shape="vision windowed layer 2x2304x16x80 on seg_win, segment-tile skip",
              kern=lambda: C.segment_flash_fwd(u(vqr), u(vkr), u(vv), seg_win, seg_win, False, hd**-0.5),
@@ -826,7 +865,12 @@ def phase_kernels(dev, card):
         *_train_cases(dev, rnd, TRAIN_BATCH, TRAIN_LEN, c3.num_attention_heads, c3.num_key_value_heads, c3.head_dim, ""),
         *_train_cases(dev, rnd, BATCH, TRAIN_LEN, c7.num_attention_heads, c7.num_key_value_heads, c7.head_dim, "7B ",
                       names=("flash_bwd_dq", "flash_bwd_dkv"), path=None),
-        # H8 / H9 over the vision layouts (the unfrozen tower's backward; no path runs it yet)
+        # the trained tower ([train-tower], 8 x 2304): H2 with its LSE and H8 / H9 over seg_full and over the
+        # window-slot ids seg_win (the segment-tile skip); the 2 x 2304 H8 / H9 lines stay as yardsticks
+        _vision_lse_case(u(tq8r), u(tk8r), u(tv8), tfull8, "seg_full"),
+        _vision_lse_case(u(tq8r), u(tk8r), u(tv8), tseg8, "seg_win, segment-tile skip"),
+        *_vision_bwd_cases(u(tq8), u(tk8), u(tv8), rnd(TRAIN_BATCH, s, h, hd), tfull8, "seg_full", "train_tower"),
+        *_vision_bwd_cases(u(tq8), u(tk8), u(tv8), rnd(TRAIN_BATCH, s, h, hd), tseg8, "seg_win, segment-tile skip", "train_tower"),
         *_vision_bwd_cases(u(vq), u(vk), u(vv), rnd(b, s, h, hd), seg_full, "seg_full"),
         *_vision_bwd_cases(u(vq), u(vk), u(vv), rnd(b, s, h, hd), seg_win, "seg_win, segment-tile skip"),
     ]
@@ -1131,16 +1175,17 @@ def phase_tiny_reference(dev):
 
 
 def phase_tiny_train(dev):
-    """padt_loss and its gradients on the tiny model (frozen tower, all four
-    losses, a batch of two synthetic REC samples built by the data
-    pipeline): bf16 on the card, through H1-H3 forward, H2 with its LSE,
-    H8/H9 and H1's VJP, vs float32 on the CPU through the twins, from the
-    same weights. Leaves whose reference gradient is under 1e-6 of the
-    largest leaf's are printed but not held to the relative bound: the
-    attention key biases, whose exact gradient is 0 (the softmax is blind
-    to a shift of every score of a row), and the last decoder block's
-    memory update, which only the mask head reads; bf16 rounding is all
-    that is left of them."""
+    """padt_loss and its gradients on the tiny model (all four losses, a
+    batch of two synthetic REC samples built by the data pipeline), with
+    the tower frozen and with it trained (per-block remat; H2 with its LSE
+    and H8/H9 over its segment and slot ids): bf16 on the card, through
+    H1-H3 forward, H2 with its LSE, H8/H9 and H1's VJP, vs float32 on the
+    CPU through the twins, from the same weights. Leaves whose reference
+    gradient is under 1e-6 of the largest leaf's are printed but not held to
+    the relative bound: the attention key biases, whose exact gradient is 0
+    (the softmax is blind to a shift of every score of a row), and the last
+    decoder block's memory update, which only the mask head reads; bf16
+    rounding is all that is left of them."""
     import numpy as np
 
     from padt_tpu_torch import padt_tiny
@@ -1157,40 +1202,49 @@ def phase_tiny_train(dev):
     proc.prepare(cfg.text.vocab_size)
     rows, images = synthetic_rec(2, grid=(1, 16, 16), seed=3)
     tb = build_train_batch(rows, proc, cfg, np.random.RandomState(0), images=images, canvas_hw=(16, 16))
-    lcfg = TS.LossConfig(freeze_vision=True)
     p32 = P.init_padt_params(cfg, torch.Generator().manual_seed(2), "cpu", torch.float32)
 
-    def run(device, dtype):
+    def run(device, dtype, frozen):
         params = _tree_to(p32, device, dtype)
-        trainable = [(n, t) for n, t in TS.flat_leaves(params) if not n.startswith("vision.")]
+        trainable = [(n, t) for n, t in TS.flat_leaves(params) if not (frozen and n.startswith("vision."))]
         for _, t in trainable:
             t.requires_grad_(True)
         batch = {k: torch.as_tensor(v, device=device) for k, v in tb.model.items()}
-        loss, _ = TS.padt_loss(params, cfg, batch, tb.prompt_length, tb.meta["canvas_hw"], lcfg, False)
+        loss, _ = TS.padt_loss(params, cfg, batch, tb.prompt_length, tb.meta["canvas_hw"],
+                               TS.LossConfig(freeze_vision=frozen), False)
         loss.backward()
         return float(loss), {n: t.grad.float().cpu() for n, t in trainable}
 
-    n0 = FB.launch_counts["flash_bwd_dkv"]
-    loss_ref, g_ref = run("cpu", torch.float32)
-    loss_dev, g_dev = run(dev, torch.bfloat16)
-    torch.cuda.synchronize()
-    if FB.launch_counts["flash_bwd_dkv"] - n0 != cfg.text.num_hidden_layers:
-        raise AssertionError("the tiny training check did not run H9 in every text layer on the card")
-    rel_loss = abs(loss_dev - loss_ref) / abs(loss_ref)
-    norms = {n: float(g.norm()) for n, g in g_ref.items()}
-    floor = 1e-6 * max(norms.values())
-    rels = {n: float((g_dev[n] - g).norm()) / norms[n] for n, g in g_ref.items() if norms[n] > floor}
-    flat_ref = torch.cat([g.flatten() for g in g_ref.values()])
-    flat_dev = torch.cat([g_dev[n].flatten() for n in g_ref])
-    cos = float(flat_ref @ flat_dev / (flat_ref.norm() * flat_dev.norm()))
-    worst = max(rels, key=rels.get)
-    log(f"[reference] tiny padt_loss, card bf16 vs CPU float32: loss {loss_dev:.5f} vs {loss_ref:.5f} (relative "
-        f"{rel_loss:.3e}, tol {TINY_REL_TOL}); gradients of {len(rels)} trainable leaves: worst relative norm "
-        f"{rels[worst]:.3e} ({worst}, tol {TINY_GRAD_REL_TOL}), cosine of the whole gradient {cos:.6f} "
-        f"(tol >= {TINY_GRAD_COS}); {len(norms) - len(rels)} leaves under the floor: "
-        + ", ".join(f"{n} {norms[n]:.1e}" for n in norms if n not in rels))
-    if not (rel_loss <= TINY_REL_TOL and rels[worst] <= TINY_GRAD_REL_TOL and cos >= TINY_GRAD_COS):
-        raise AssertionError("the tiny training step on the card disagrees with the CPU reference")
+    for frozen in (True, False):
+        what = "frozen tower" if frozen else "tower trained"
+        n0 = FB.launch_counts["flash_bwd_dkv"]
+        loss_ref, g_ref = run("cpu", torch.float32, frozen)
+        loss_dev, g_dev = run(dev, torch.bfloat16, frozen)
+        torch.cuda.synchronize()
+        blocks = cfg.text.num_hidden_layers + (0 if frozen else cfg.vision.depth)
+        if FB.launch_counts["flash_bwd_dkv"] - n0 != blocks:
+            raise AssertionError(f"the tiny training check ({what}) did not run H9 in every text layer"
+                                 + ("" if frozen else " and every tower block") + " on the card")
+        rel_loss = abs(loss_dev - loss_ref) / abs(loss_ref)
+        norms = {n: float(g.norm()) for n, g in g_ref.items()}
+        floor = 1e-6 * max(norms.values())
+        rels = {n: float((g_dev[n] - g).norm()) / norms[n] for n, g in g_ref.items() if norms[n] > floor}
+        flat_ref = torch.cat([g.flatten() for g in g_ref.values()])
+        flat_dev = torch.cat([g_dev[n].flatten() for n in g_ref])
+        cos = float(flat_ref @ flat_dev / (flat_ref.norm() * flat_dev.norm()))
+        worst = max(rels, key=rels.get)
+        tower = [n for n in rels if n.startswith("vision.")]
+        tower_txt = "" if frozen else (f"; {len(tower)} tower leaves held, worst "
+                                       f"{max(rels[n] for n in tower):.3e} ({max(tower, key=rels.get)})")
+        log(f"[reference] tiny padt_loss, {what}, card bf16 vs CPU float32: loss {loss_dev:.5f} vs {loss_ref:.5f} "
+            f"(relative {rel_loss:.3e}, tol {TINY_REL_TOL}); gradients of {len(rels)} trainable leaves: worst relative "
+            f"norm {rels[worst]:.3e} ({worst}, tol {TINY_GRAD_REL_TOL}), cosine of the whole gradient {cos:.6f} "
+            f"(tol >= {TINY_GRAD_COS}){tower_txt}; {len(norms) - len(rels)} leaves under the floor: "
+            + ", ".join(f"{n} {norms[n]:.1e}" for n in norms if n not in rels))
+        if not frozen and not tower:
+            raise AssertionError("the tiny training check held no tower leaf")
+        if not (rel_loss <= TINY_REL_TOL and rels[worst] <= TINY_GRAD_REL_TOL and cos >= TINY_GRAD_COS):
+            raise AssertionError(f"the tiny training step on the card ({what}) disagrees with the CPU reference")
 
 
 def _tree_to(tree, device, dtype):
@@ -1257,6 +1311,78 @@ def phase_train(dev, card, params):
     log(f"[train] launches {counts} (exactly {TRAIN_STEPS} x {train_step_launches(cfg)}); {len(moved)} text leaves moved, "
         f"{len(text_before) - len(moved)} bf16 ones reached by a gradient but below a bf16 step of 1.0; the tower unchanged")
     del trainer, text_before, vision_before, exp_avg
+    return counts
+
+
+def phase_train_tower(dev, card, params):
+    """[train-tower]: PaDT-3B SFT with the tower trained (TrainArgs'
+    default) through PaDTTrainer.train(): TRAIN_TOWER_STEPS steps of the
+    single-card configuration with freeze_vision_modules=False (AdamW,
+    per-block remat of the tower) on `params`, which it updates in place,
+    with the launch counters reset just before and read just after. Holds
+    the exact launches per step, finite positive losses and grad norms,
+    every tower leaf moved (or, for the bf16 norm weights of 1.0, reached by
+    a gradient) and the peak memory under the card's 80 GB. Returns the
+    launch counts."""
+    import tempfile
+
+    import numpy as np
+
+    from padt_tpu_torch.tools.profile_train import flops_per_step, make_trainer
+    from padt_tpu_torch.train.train_step import flat_leaves, train_step_launches
+
+    steps = TRAIN_TOWER_STEPS
+    with tempfile.TemporaryDirectory() as out:
+        cfg, trainer = make_trainer(dev, TRAIN_BATCH * steps, out, params=params, freeze_vision_modules=False)
+        if trainer.args.optimizer != "adamw" or trainer.args.freeze_vision_modules:
+            raise AssertionError("[train-tower] is the AdamW step with the tower trained")
+        vision_before = {n: t.detach().clone() for n, t in flat_leaves(trainer.params["vision"])}
+        counters = _counters()
+        for c in counters:
+            c.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = _with_rope_shapes({k: v for c in counters for k, v in c.launch_counts.items()})
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if trainer.global_step != steps or len(metrics) != steps:
+        raise AssertionError(f"[train-tower] ran {trainer.global_step} steps, expected {steps}")
+    for m in metrics:
+        if not all(np.isfinite(m[k]) and m[k] > 0 for k in ("loss", "grad_norm", "sft_loss", "bbox_loss", "mask_loss")):
+            raise AssertionError(f"[train-tower] step {m['step']}: a loss or the grad norm is not finite and positive: {m}")
+    plan = train_step_launches(cfg, freeze_vision=False)
+    per_step = {k: n * steps for k, n in plan.items()}
+    if {k: counts[k] for k in per_step} != per_step:
+        raise AssertionError(f"[train-tower] launches {counts}, expected exactly {per_step} ({steps} steps)")
+    moved, unreached = [], []
+    exp_avg = {n: trainer.optimizer.inner.state[t]["exp_avg"] for n, t in trainer.optimizer.leaves}
+    for n, t in flat_leaves(trainer.params["vision"]):
+        if not torch.equal(t.detach(), vision_before[n]):
+            moved.append(n)
+        elif not (bool((vision_before[n] == 1).all()) and float(exp_avg["vision." + n].abs().max()) > 0):
+            unreached.append(n)
+    if unreached:
+        raise AssertionError(f"[train-tower] tower leaves that neither moved nor are bf16 ones reached by a gradient: {unreached}")
+    if not peak < 80.0:
+        raise AssertionError(f"[train-tower] peak {peak:.2f} GB allocated: not under the card's 80 GB")
+    times = [m["step_time_s"] for m in metrics[1:]]  # step 1 warms up
+    s_step = float(np.mean(times))
+    tokens = TRAIN_BATCH * TRAIN_LEN
+    flops = flops_per_step(cfg, trainer.params, TRAIN_BATCH, TRAIN_LEN, TRAIN_LEN - 640, PATCHES, False)
+    log(f"[train-tower] padt_3b SFT, tower trained (per-block remat), AdamW lr 2e-5, batch {TRAIN_BATCH} x {TRAIN_LEN} "
+        f"tokens, all four losses: {steps} steps in {wall:.2f} s wall; losses " + ", ".join(f"{m['loss']:.4f}" for m in metrics)
+        + "; grad norms " + ", ".join(f"{m['grad_norm']:.4f}" for m in metrics))
+    log(f"[train-tower] s/step {s_step:.4f} (steps 2-{steps}: " + ", ".join(f"{x:.4f}" for x in times) + f"), "
+        f"{tokens / s_step:.1f} tokens/s, MFU {flops / s_step / BF16_TENSOR_FLOPS:.4f} ({flops / 1e12:.1f} TFLOP per step, the "
+        f"tower counted 3x, over {BF16_TENSOR_FLOPS / 1e12:.0f} TFLOP/s), peak {peak:.2f} GB allocated of 80 GB; step 1 "
+        f"{metrics[0]['step_time_s']:.3f} s ({card})")
+    log(f"[train-tower] launches {counts} (exactly {steps} x {plan}: H2 / H8 / H9 in every tower block, no H3); "
+        f"{len(moved)} tower leaves moved, {len(vision_before) - len(moved)} bf16 ones reached by a gradient but below "
+        f"a bf16 step of 1.0")
+    del trainer, vision_before, exp_avg
     return counts
 
 
@@ -1807,10 +1933,14 @@ def main() -> int:
     del model, proc
     gc.collect()
     train_counts = phase_train(dev, card, params)  # trains the same 3B weights in place
-    del params
     gc.collect()
     torch.cuda.empty_cache()
     stamp("train")
+    tower_counts = phase_train_tower(dev, card, params)  # and again, with the tower trained
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    stamp("train-tower")
     h7_entries, counts_7b = phase_7b(dev, card)
     entries += h7_entries
     gc.collect()
@@ -1822,9 +1952,10 @@ def main() -> int:
     # each kernel's launches on its own path (H1's at the line's own shape): the 3B run_batch for H1-H3, 3B
     # serving for H4-H6, the older KV forms' op-level run for K13-K18, the QI8
     # serve runs for H4's QI8 mode, the 3B train steps for the training
-    # lines, the 7B runs for the 7B shapes and H7, one stream pass for H10
+    # lines (the trained tower's for its H2 / H8 / H9 lines), the 7B runs for
+    # the 7B shapes and H7, one stream pass for H10
     paths = {"3b_batch": counts, "3b_serve": serve_counts, "forms": forms_counts, "3b_qi8": qi8_counts,
-             "train": train_counts, "7b": counts_7b, "stream": stream_counts}
+             "train": train_counts, "train_tower": tower_counts, "7b": counts_7b, "stream": stream_counts}
     kernels, yardsticks = [], []
     for e in entries:
         path, key = e.pop("path"), e.pop("launch_key")

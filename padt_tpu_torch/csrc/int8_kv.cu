@@ -825,33 +825,63 @@ static bool plan_ok(int nsplit, int stages, int hd) {
   return nsplit >= 1 && nsplit <= kMaxSplit && (nsplit & (nsplit - 1)) == 0 && hd % nsplit == 0 && stages >= 2;
 }
 
-// H6: block (h, b, l) copies rows j < n_rows[b] of the new K/V and scales to
-// rows pos[b] + j of layer l; rows outside [0, C) are dropped.
-__global__ void store_rows_kernel(int8_t* __restrict__ k8, float* __restrict__ ks,
-                                  int8_t* __restrict__ v8, float* __restrict__ vs,
-                                  const int8_t* __restrict__ k8r, const float* __restrict__ ksr,
-                                  const int8_t* __restrict__ v8r, const float* __restrict__ vsr,
-                                  const int* __restrict__ pos, const int* __restrict__ n_rows,
-                                  int B, int Hkv, int C, int kq, int hd) {
-  const int h = blockIdx.x, b = blockIdx.y, l = blockIdx.z;
-  const int p = pos[b];
-  const int n = min(n_rows[b], kq);
-  const long long lbh = ((long long)l * B + b) * Hkv + h;
-  const int chunks = hd / 16;
-  for (int i = threadIdx.x; i < n * chunks; i += blockDim.x) {
-    const int j = i / chunks, e = i % chunks;
-    const int row = p + j;
-    if (row < 0 || row >= C) continue;
-    reinterpret_cast<int4*>(k8 + (lbh * C + row) * hd)[e] =
-        reinterpret_cast<const int4*>(k8r + (lbh * kq + j) * hd)[e];
-    reinterpret_cast<int4*>(v8 + (lbh * C + row) * hd)[e] =
-        reinterpret_cast<const int4*>(v8r + (lbh * kq + j) * hd)[e];
+// H6 (store_kv_rows): one thread per 16-byte chunk of RPT new K or V rows
+// (rows j = jg * RPT + r, r < RPT), over every (layer, slot, kv head, row
+// group) of the call, flat:
+//   t = ((((l * B + b) * Hkv + h) * G + jg) * 2 + kv) * chunks + e,
+// G = ceil(kq / RPT), so a warp writes whole 16-byte-aligned rows; the
+// thread of chunk 0 also copies its rows' fp32 scales. A thread issues the
+// loads of all its rows before its first store. Rows j >= n_rows[b] and
+// rows whose position pos[b] + j falls outside [0, C) are dropped.
+// Launched under programmatic dependent launch: only index arithmetic runs
+// before griddepcontrol.wait, which every memory access follows (the new
+// rows are the preceding kernels' outputs, and they read the cache that
+// this kernel writes). ops/cuda_kv.py (`store_plan`) mirrors the mapping.
+template <int RPT>
+__global__ void store_rows_flat_kernel(int8_t* __restrict__ k8, float* __restrict__ ks, int8_t* __restrict__ v8,
+                                       float* __restrict__ vs, const int8_t* __restrict__ k8r,
+                                       const float* __restrict__ ksr, const int8_t* __restrict__ v8r,
+                                       const float* __restrict__ vsr, const int* __restrict__ pos,
+                                       const int* __restrict__ n_rows, unsigned B, unsigned Hkv, int C, unsigned kq,
+                                       unsigned groups, unsigned chunks, unsigned n_threads) {
+  const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned e = t % chunks;
+  unsigned u = t / chunks;
+  const unsigned kv = u & 1u;
+  u >>= 1;
+  const unsigned jg = u % groups;
+  u /= groups;
+  const unsigned h = u % Hkv;
+  u /= Hkv;
+  const unsigned b = u % B, l = u / B;
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  if (t >= n_threads) return;
+  const int n = min(n_rows[b], (int)kq), p = pos[b];
+  const size_t lbh = ((size_t)l * B + b) * Hkv + h;
+  const size_t src = lbh * kq + jg * RPT;     // row jg * RPT of the new rows
+  const size_t dst = lbh * C + p + jg * RPT;  // its place in the cache
+  const int8_t* from = kv ? v8r : k8r;
+  const float* from_s = kv ? vsr : ksr;
+  int8_t* to = kv ? v8 : k8;
+  float* to_s = kv ? vs : ks;
+  int4 val[RPT];
+  float sc[RPT];
+  bool keep[RPT];
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const int j = (int)(jg * RPT) + r, row = p + j;
+    keep[r] = j < n && row >= 0 && row < C;
+    if (keep[r]) {
+      val[r] = __ldg(reinterpret_cast<const int4*>(from + (src + r) * chunks * 16) + e);
+      if (e == 0) sc[r] = __ldg(from_s + src + r);
+    }
   }
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    const int row = p + j;
-    if (row < 0 || row >= C) continue;
-    ks[lbh * C + row] = ksr[lbh * kq + j];
-    vs[lbh * C + row] = vsr[lbh * kq + j];
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    if (keep[r]) {
+      reinterpret_cast<int4*>(to + (dst + r) * chunks * 16)[e] = val[r];
+      if (e == 0) to_s[dst + r] = sc[r];
+    }
   }
 }
 
@@ -922,17 +952,42 @@ extern "C" int padt_int8_verify_attn(const void* q, const void* k8, const void* 
 #undef PADT_VERIFY
 }
 
+// H6: the new rows k8r / v8r (L, B, Hkv, kq, hd) int8, 16-byte aligned,
+// and their scales ksr / vsr (L, B, Hkv, kq) fp32, all contiguous; rpt rows
+// a thread (1 or 2), `block` threads a CTA (a multiple of 32, <= 1024), pdl
+// 1 to launch under programmatic dependent launch.
 extern "C" int padt_store_kv_rows(void* k8, void* ks, void* v8, void* vs, const void* k8r,
                                   const void* ksr, const void* v8r, const void* vsr,
                                   const void* pos, const void* n_rows, int L, int B, int Hkv,
-                                  int C, int kq, int hd, void* stream) {
+                                  int C, int kq, int hd, int rpt, int block, int pdl, void* stream) {
   using namespace padt;
   if (L == 0 || B == 0 || Hkv == 0 || kq == 0) return 0;
-  const dim3 grid(Hkv, B, L);
-  store_rows_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int8_t*>(k8), static_cast<float*>(ks), static_cast<int8_t*>(v8),
-      static_cast<float*>(vs), static_cast<const int8_t*>(k8r), static_cast<const float*>(ksr),
-      static_cast<const int8_t*>(v8r), static_cast<const float*>(vsr),
-      static_cast<const int*>(pos), static_cast<const int*>(n_rows), B, Hkv, C, kq, hd);
-  return (int)cudaGetLastError();
+  const int groups = (kq + rpt - 1) / rpt;
+  const long long n_threads = 2LL * L * B * Hkv * groups * (hd / 16);
+  if (hd % 16 != 0 || rpt <= 0 || block <= 0 || block > 1024 || block % 32 != 0 || n_threads >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((n_threads + block - 1) / block));
+  cfg.blockDim = dim3(block);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  cudaError_t e = cudaSuccess;
+#define PADT_STORE(RPT_)                                                                                          \
+  e = cudaLaunchKernelEx(&cfg, store_rows_flat_kernel<RPT_>, static_cast<int8_t*>(k8), static_cast<float*>(ks),  \
+                         static_cast<int8_t*>(v8), static_cast<float*>(vs), static_cast<const int8_t*>(k8r),     \
+                         static_cast<const float*>(ksr), static_cast<const int8_t*>(v8r),                         \
+                         static_cast<const float*>(vsr), static_cast<const int*>(pos),                            \
+                         static_cast<const int*>(n_rows), (unsigned)B, (unsigned)Hkv, C, (unsigned)kq,            \
+                         (unsigned)groups, (unsigned)(hd / 16), (unsigned)n_threads)
+  switch (rpt) {
+    case 1: PADT_STORE(1); break;
+    case 2: PADT_STORE(2); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef PADT_STORE
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }

@@ -271,18 +271,24 @@ def int8_layers(params, cfg: TextConfig, x, cos, sin, attend):
     loop (x (B, n, D): n new tokens). Each layer's new K/V rows are
     quantized and handed to `attend(q, layer, fresh)` as its fresh columns
     (H4 or H5 on the card). Returns the post-final-norm hidden and the new
-    rows of every layer, stacked for one store after the loop:
-    (k8r (L, B, Hkv, n, hd), ksr (L, B, Hkv, n), v8r, vsr)."""
+    rows of every layer for one store after the loop, stacked:
+    (k8r (L, B, Hkv, n, hd), ksr (L, B, Hkv, n), v8r, vsr). Each layer
+    quantizes straight into its slice of these buffers, so no copy stacks
+    them."""
     b, n, _ = x.shape
-    rows = []
-    for li in range(cfg.num_hidden_layers):
+    nl, hkv, hd = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
+    i8 = lambda: torch.empty((nl, b, hkv, n, hd), dtype=torch.int8, device=x.device)
+    f32 = lambda: torch.empty((nl, b, hkv, n), dtype=torch.float32, device=x.device)
+    stacked = (i8(), f32(), i8(), f32())
+    k8r, ksr, v8r, vsr = (t.unbind(0) for t in stacked)
+    for li in range(nl):
         lp = _layer(params, li)
         q, k, v = _qkv_rot(rms_norm(x, lp["input_ln_w"], cfg.rms_norm_eps), lp, cfg, cos, sin)
-        fresh = (*quantize_kv(k.transpose(1, 2)), *quantize_kv(v.transpose(1, 2)))
+        fresh = (*quantize_kv(k.transpose(1, 2), out=(k8r[li], ksr[li])),
+                 *quantize_kv(v.transpose(1, 2), out=(v8r[li], vsr[li])))
         x = x + qlinear(lp, "o_w", attend(q, li, fresh).reshape(b, n, -1))
         x = x + _mlp(rms_norm(x, lp["post_ln_w"], cfg.rms_norm_eps), lp)
-        rows.append(fresh)
-    return rms_norm(x, params["final_ln_w"], cfg.rms_norm_eps), tuple(torch.stack(t) for t in zip(*rows))
+    return rms_norm(x, params["final_ln_w"], cfg.rms_norm_eps), stacked
 
 
 def _decode_step_int8(params, cfg: TextConfig, inputs_embeds, position_ids, cache: QuantKVCache):

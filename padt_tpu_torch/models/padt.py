@@ -350,7 +350,7 @@ def _expand_pixels_u8(cfg: PaDTConfig, u8, num_patches, dtype=torch.bfloat16):
     return torch.where(valid, x, torch.zeros((), dtype=dtype, device=u8.device))
 
 
-def _run_vision_once(params, cfg: PaDTConfig, batch, freeze: bool = False) -> VisionArtifacts:
+def _run_vision_once(params, cfg: PaDTConfig, batch, freeze: bool = False, remat: bool = False) -> VisionArtifacts:
     pix = batch.get("pixel_patches")
     if pix is None:
         pix = _expand_pixels_u8(cfg, batch["pixel_patches_u8"], batch["num_patches"])
@@ -360,7 +360,7 @@ def _run_vision_once(params, cfg: PaDTConfig, batch, freeze: bool = False) -> Vi
         merged, high_res, (cos, sin) = vision_forward(
             params["vision"], cfg.vision, pix,
             batch["window_index"], batch["inv_window_index"], batch["seg_win"], batch["seg_full"],
-            batch["hpos"], batch["wpos"], pack_index=batch.get("pack_index"),
+            batch["hpos"], batch["wpos"], remat=remat, pack_index=batch.get("pack_index"),
         )
     return VisionArtifacts(
         merged=merged, proto=image_prototypes(params, cfg, merged), high_res=high_res,
@@ -369,11 +369,14 @@ def _run_vision_once(params, cfg: PaDTConfig, batch, freeze: bool = False) -> Vi
     )
 
 
-def run_vision(params, cfg: PaDTConfig, batch: Dict[str, torch.Tensor], freeze: bool = False) -> VisionArtifacts:
+def run_vision(params, cfg: PaDTConfig, batch: Dict[str, torch.Tensor], freeze: bool = False,
+               remat: bool = False) -> VisionArtifacts:
     """Vision tower + prototypes; with `cfg.vision_chunk_size` set (and
-    dividing B), the tower runs over batch chunks to bound transients. A
-    batch with cached `vis_*` features (`vision_features`) skips the tower
-    and recomputes only the prototypes; that needs freeze=True."""
+    dividing B), the tower runs over batch chunks to bound transients (each
+    chunk's blocks, and their checkpoints under `remat`, see only that
+    chunk's segment ids and tables). A batch with cached `vis_*` features
+    (`vision_features`) skips the tower and recomputes only the prototypes;
+    that needs freeze=True."""
     if "vis_merged" in batch or "vis_merged_q" in batch:
         if not freeze:
             raise ValueError(
@@ -396,11 +399,12 @@ def run_vision(params, cfg: PaDTConfig, batch: Dict[str, torch.Tensor], freeze: 
     cs = cfg.vision_chunk_size
     if cs and b > cs and b % cs == 0:
         parts = [
-            _run_vision_once(params, cfg, {k: batch[k][i : i + cs] for k in _VISION_BATCH_KEYS if k in batch}, freeze)
+            _run_vision_once(params, cfg, {k: batch[k][i : i + cs] for k in _VISION_BATCH_KEYS if k in batch}, freeze,
+                             remat)
             for i in range(0, b, cs)
         ]
         return VisionArtifacts(*(torch.cat(xs) for xs in zip(*parts)))
-    return _run_vision_once(params, cfg, batch, freeze)
+    return _run_vision_once(params, cfg, batch, freeze, remat)
 
 
 def forward_train(
@@ -416,7 +420,7 @@ def forward_train(
     hidden positions [start, start + length) (the completion). Returns
     (logits: (B, Lc, V + M) fp32, or the ((B, Lc, V), (B, Lc, M)) pair with
     split_logits; hidden (B, L, D); the vision artifacts)."""
-    art = run_vision(params, cfg, batch, freeze=freeze_vision)
+    art = run_vision(params, cfg, batch, freeze=freeze_vision, remat=remat)
     embeds = extended_embed(params, cfg, batch["input_ids"], art.proto, art.merged)
     hidden, _ = language.text_forward(
         params["text"], cfg.text, embeds, batch["position_ids"], batch["attention_mask"].bool(), remat=remat,

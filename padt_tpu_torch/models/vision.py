@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import VisionConfig
 from ..ops.attention import fused_vision_attention_qkv, window_attention_qkv
@@ -86,6 +87,7 @@ def vision_forward(
     seg_full: torch.Tensor,  # (B, S) int32
     hpos: torch.Tensor,  # (B, S)
     wpos: torch.Tensor,  # (B, S)
+    remat: bool = False,
     pack_index: Optional[torch.Tensor] = None,  # (B, M) slot -> packed (slot layout)
 ) -> Tuple[torch.Tensor, torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Returns (merged (B, M, out) raster order, high_res (B, S, D) window
@@ -93,7 +95,11 @@ def vision_forward(
 
     `pack_index` given => the 64-token window-slot layout: windowed layers
     run the per-slot kernel, and high_res/cos/sin are gathered back to the
-    packed window order before returning (the decoder's contract)."""
+    packed window order before returning (the decoder's contract).
+    remat: with grad mode on, each block runs under a non-reentrant
+    `torch.utils.checkpoint` (JAX's `jax.checkpoint` of the scan body), so
+    the backward keeps only the blocks' inputs and recomputes one block at
+    a time."""
     b, s, _ = pixels.shape
     unit = cfg.spatial_merge_unit
     m = s // unit
@@ -106,11 +112,13 @@ def vision_forward(
     blocks = params["blocks"]
     full = set(cfg.fullatt_block_indexes)
     slot_mode = pack_index is not None
+    remat = remat and torch.is_grad_enabled()
     for li in range(cfg.depth):
         lp = {k: v[li] for k, v in blocks.items()}
         is_full = li in full
         seg = seg_full if is_full else seg_win
-        x = _block(x, lp, cos, sin, seg, cfg, windowed=slot_mode and not is_full)
+        args = (x, lp, cos, sin, seg, cfg, slot_mode and not is_full)
+        x = checkpoint(_block, *args, use_reentrant=False) if remat else _block(*args)
 
     if slot_mode:
         high_res = _take_groups(x, pack_index, unit)

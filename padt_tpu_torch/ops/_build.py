@@ -38,7 +38,7 @@ _SIGNATURES = {
     "padt_window_slot_attn": [_P, _P, _P, _P, _P, _I, _I, _I, _I] + [_LL] * 9 + [_F, _I, _I, _I, _P],
     "padt_int8_decode_attn": [_P] * 12 + [_I] * 9 + [_F, _P],
     "padt_int8_verify_attn": [_P] * 12 + [_I] * 10 + [_F, _P],
-    "padt_store_kv_rows": [_P] * 10 + [_I] * 6 + [_P],
+    "padt_store_kv_rows": [_P] * 10 + [_I] * 9 + [_P],
     "padt_int8_matmul": [_P, _LL, _P, _P, _P] + [_I] * 7 + [_P],
     "padt_stream_matmul": [_P, _LL] + [_P] * 5 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
 }

@@ -12,9 +12,15 @@ Training: `flash_attention` is the autograd Function of JAX's
 `flash_attention` custom VJP (`pallas_attention.py:227-265,453-538`): H2
 with its LSE output forward, H8/H9 backward. `rope_pair_packed` is that of
 `rope_pair_packed` (`:649-679`): H1 forward, H1 with the sin negated
-backward. `causal_attention` and `rope_pair_packed` take their Function
-only when grad mode is on and an input requires grad, so inference
-launches exactly what it did before.
+backward. The two vision calls port JAX's `vision_flash_attention_qkv`
+(`:1051-1105`) and `vision_window_attention_qkv` (`:941-981`), whose
+backward is one `_vis_qkv_bwd`: under grad both run H1 on the q/k views of
+the fused qkv and H2 with its LSE, non-causally over their segment ids
+(the windowed layers' slot ids express the window mask, so H3, which has
+no backward, stays their inference forward), and their backward is H8 +
+H9, then H1 with the sin negated, with d(qkv) written once. Every call
+takes its Function only when grad mode is on and an input requires grad,
+so inference launches exactly what it did before.
 
 Rows with no valid key: the kernels and their twins return 0, as the TPU
 kernels do. The JAX XLA branches return a finite uniform average there
@@ -59,8 +65,11 @@ def fused_vision_attention_qkv(
     qkv, cos, sin, seg, num_heads: int,
     scale: Optional[float] = None, rope_dim: Optional[int] = None,
 ):
-    """Full (segment) vision attention on the fused pre-rope qkv -> (B, S, H*D)."""
+    """Full (segment) vision attention on the fused pre-rope qkv -> (B, S, H*D);
+    differentiable (`_VisionFlashQKV`) when qkv requires grad."""
     b, s, _ = qkv.shape
+    if _needs_grad(qkv):
+        return _VisionFlashQKV.apply(qkv, cos, sin, seg, num_heads, _scale(cos.shape[-1], scale, rope_dim))
     q, k, v = _rope_split_qkv(qkv, cos, sin, num_heads)
     out = segment_flash_fwd(q, k, v, seg, seg, False, _scale(q.shape[-1], scale, rope_dim))
     return out.reshape(b, s, -1)
@@ -70,10 +79,16 @@ def window_attention_qkv(
     qkv, cos, sin, seg, num_heads: int, win: int = WINDOW,
     scale: Optional[float] = None, rope_dim: Optional[int] = None,
 ):
-    """Windowed vision attention on the 64-token slot layout -> (B, S, H*D)."""
+    """Windowed vision attention on the 64-token slot layout -> (B, S, H*D).
+    Under grad (qkv requires grad) it is segment attention over the slot ids
+    `seg`, the same mask on every valid row, through `_VisionFlashQKV`: a
+    pad row then gives 0 where H3 gives the window's average, and no valid
+    row reads a pad row."""
     if win != WINDOW:
         raise ValueError(f"window slots are {WINDOW} tokens, got {win}")
     b, s, _ = qkv.shape
+    if _needs_grad(qkv):
+        return _VisionFlashQKV.apply(qkv, cos, sin, seg, num_heads, _scale(cos.shape[-1], scale, rope_dim))
     q, k, v = _rope_split_qkv(qkv, cos, sin, num_heads)
     out = window_slot_attn(q, k, v, seg, _scale(q.shape[-1], scale, rope_dim))
     return out.reshape(b, s, -1)
@@ -111,6 +126,37 @@ def flash_attention(q, k, v, q_seg, k_seg, causal: bool = False, scale: Optional
     D), segment ids (B, S) int32 (-1 = pad). Rows with no visible key give 0."""
     scale = (1.0 / (q.shape[-1] ** 0.5)) if scale is None else scale
     return _FlashAttention.apply(q, k, v, q_seg, k_seg, causal, scale)
+
+
+class _VisionFlashQKV(torch.autograd.Function):
+    """JAX's `vision_flash_attention_qkv` custom VJP on the fused pre-rope
+    qkv (B, S, 3*H*hd): the forward runs H1 on its q/k views and H2 with its
+    LSE, non-causally over `seg`, and saves the rotated q/k, the output and
+    the LSE; the backward (`_vis_qkv_bwd`) runs H8 and H9 on them, H1 with
+    the sin negated on dq/dk in one launch, and writes d(qkv) once by
+    concatenation, as JAX's `concatenate` does."""
+
+    @staticmethod
+    def forward(ctx, qkv, cos, sin, seg, num_heads: int, scale: float):
+        b, s, _ = qkv.shape
+        q, k, v = _rope_split_qkv(qkv, cos, sin, num_heads)
+        out, lse = segment_flash_fwd(q, k, v, seg, seg, False, scale, return_lse=True)
+        out = out.reshape(b, s, -1)
+        ctx.save_for_backward(qkv, q, k, cos, sin, seg, out, lse)
+        ctx.heads, ctx.scale = num_heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, q, k, cos, sin, seg, out, lse = ctx.saved_tensors
+        b, s, h, hd = q.shape
+        v = qkv[..., 2 * h * hd :].unflatten(-1, (h, hd))
+        g = g.to(q.dtype).reshape(b, s, h, hd).contiguous()
+        delta = (g.float() * out.float().unflatten(-1, (h, hd))).sum(-1).transpose(1, 2).contiguous()  # (B, H, S)
+        args = (q, k, v, g, seg, seg, lse, delta, False, ctx.scale)
+        dk, dv = flash_bwd_dkv(*args)
+        dq, dk = rope_qk(flash_bwd_dq(*args).flatten(2), dk.flatten(2), cos, sin, h, h, sin_sign=-1.0)
+        return torch.cat([dq, dk, dv.flatten(2)], dim=-1), None, None, None, None, None
 
 
 def causal_attention(q, k, v, valid):

@@ -21,10 +21,11 @@ and adds one to `launch_counts[name]` after the launch.
 A kernel writes its output through raw pointers, which autograd cannot see:
 on CUDA tensors that require grad (with grad mode on) each wrapper raises
 rather than cut the graph. Training reaches H1 and H2 through the autograd
-Functions of `ops.attention` (`rope_pair_packed`, `flash_attention`), whose
-forwards run with grad mode off and whose backwards are kernels too (H1
-with the sin negated; H8/H9 in `cuda_flash_bwd`). H3 has no backward yet:
-the vision tower trains on the card only frozen.
+Functions of `ops.attention` (`rope_pair_packed`, `flash_attention`, and
+the trained vision tower's `_VisionFlashQKV`), whose forwards run with
+grad mode off and whose backwards are kernels too (H1 with the sin
+negated; H8/H9 in `cuda_flash_bwd`). H3 has no backward: under grad the
+tower's windowed layers take H2 over their window-slot ids instead.
 
 The kernels take bf16 activations (fp32 rope tables, int32 segment ids).
 The twins compute in fp32 and return the input's dtype. A query row with no

@@ -19,6 +19,10 @@ the columns below n_valid[b], K15) and H5 applies the causal limit
 c <= write_pos[b] + r % kq over a cache that already holds the new rows
 (K16). `quantize_q` (H4 only) scores with q quantized to int8 per row.
 
+H6 runs one thread per 16-byte chunk of the new rows under programmatic
+dependent launch (`store_plan`, a pure-Python mirror of its mapping that
+the CPU tests check).
+
 Each wrapper takes the plain PyTorch twin beside it (`*_plain`) for tensors
 on the CPU and only there: on a CUDA tensor it launches its kernel or raises.
 The twins are the plain branches of the JAX functions
@@ -30,14 +34,16 @@ bf16 roundings in the same places; they return the query's dtype.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ._build import check, load_library
 from .attention import NEG_INF
-from .cuda_attention import _on_cpu, _require, _same_device, _stream
+from .cuda_attention import SMS, _on_cpu, _require, _same_device, _stream
 
 KV_HEAD_DIMS = (16, 32, 64, 128, 256)  # head dims the attention kernel is built for
 MAX_STORE_ROWS = 32  # rows per slot that one store writes (the suffix pass width)
@@ -437,6 +443,83 @@ def int8_verify_attn(
 # H6 store_kv_rows
 # ---------------------------------------------------------------------------
 
+STORE_BLOCKS = (128, 64, 32)  # H6's CTA sizes where the grid gives every SM a CTA, largest first
+STORE_RPTS = (2, 1)  # H6's rows per thread (kernel instances), largest first; 4 and 8 lost in the sweep
+STORE_PDL = True  # H6 launches under programmatic dependent launch
+STORE_SM_THREADS = 2048  # the threads an SM holds at once
+
+
+@dataclass(frozen=True)
+class StorePlan:
+    """How csrc/int8_kv.cu's H6 runs one call: one thread per 16-byte chunk
+    of `rpt` new K or V rows over `layers` x `b` slots x `hkv` heads x
+    `groups` = ceil(kq / rpt) groups of rows, `block` threads a CTA."""
+
+    layers: int
+    b: int
+    hkv: int
+    kq: int
+    hd: int
+    rpt: int
+    block: int
+    pdl: bool  # launch under programmatic dependent launch
+
+    @property
+    def chunks(self) -> int:
+        return self.hd // 16
+
+    @property
+    def groups(self) -> int:
+        return -(-self.kq // self.rpt)
+
+    @property
+    def threads(self) -> int:
+        return 2 * self.layers * self.b * self.hkv * self.groups * self.chunks
+
+    @property
+    def ctas(self) -> int:
+        return -(-self.threads // self.block)
+
+    def units(self, t):
+        """(layer, slot, head, row, kv, chunk) of every row the threads t
+        (numpy ints below `threads`) copy, by the kernel's own formula:
+        thread t takes rows jg * rpt + r (r < rpt, row < kq) of chunk t %
+        chunks of the K (kv 0) or V (kv 1) rows."""
+        e, u = t % self.chunks, t // self.chunks
+        kv, u = u % 2, u // 2
+        jg, u = u % self.groups, u // self.groups
+        h, u = u % self.hkv, u // self.hkv
+        j = (jg[:, None] * self.rpt + np.arange(self.rpt)[None, :]).ravel()
+        rep = lambda x: np.repeat(x, self.rpt)
+        live = j < self.kq
+        return tuple(x[live] for x in (rep(u // self.b), rep(u % self.b), rep(h), j, rep(kv), rep(e)))
+
+
+def store_plan(layers: int, b: int, hkv: int, kq: int, hd: int, rpt: Optional[int] = None,
+               block: Optional[int] = None, pdl: Optional[bool] = None) -> StorePlan:
+    """H6's launch plan, from tools/store_rows_times.py's sweep on an H100:
+    the most rows a thread (of STORE_RPTS, at most kq) that still fills
+    every SM's STORE_SM_THREADS thread slots, else one (3B's suffix store at
+    16 slots: 2 rows a thread, 0.0037 ms, against 0.0039-0.0049 at 8, 4 or
+    1 in the sweep); the largest of STORE_BLOCKS that still gives every SM
+    a CTA, else the smallest (a one-layer store: a few CTAs whichever); programmatic
+    dependent launch as STORE_PDL says (3B decode 0.0028 -> 0.0015 ms).
+    `rpt` / `block` / `pdl` force a candidate."""
+    threads = lambda r: 2 * layers * b * hkv * -(-kq // r) * (hd // 16)
+    if rpt is None:
+        rpt = next((r for r in STORE_RPTS if r <= kq and threads(r) >= SMS * STORE_SM_THREADS), 1)
+    if block is None:
+        block = next((c for c in STORE_BLOCKS if -(-threads(rpt) // c) >= SMS), STORE_BLOCKS[-1])
+    return StorePlan(layers, b, hkv, kq, hd, rpt, block, STORE_PDL if pdl is None else pdl)
+
+
+@functools.lru_cache(maxsize=64)
+def _default_store_plan(layers: int, b: int, hkv: int, kq: int, hd: int, pdl: bool) -> StorePlan:
+    """store_plan's default for a call's shape, made once (a decode step's
+    host time bounds it)."""
+    return store_plan(layers, b, hkv, kq, hd, pdl=pdl)
+
+
 def _put_rows(buf, new, j: int, rows, keep):
     """buf[:, b, :, rows[b]] = new[:, b, :, j] where keep[b] (all layers)."""
     bi = torch.arange(buf.shape[1], device=buf.device)
@@ -467,6 +550,7 @@ def store_kv_rows(
     vsr: torch.Tensor,
     pos: torch.Tensor,  # (B,) int32: first row position per slot
     n_rows: torch.Tensor,  # (B,) int32: rows to write per slot (<= kq)
+    plan: Optional[StorePlan] = None,  # store_plan(L, B, Hkv, kq, hd) unless given
 ) -> None:
     """IN PLACE: rows j < n_rows[b] of every layer's new K/V and scales land
     at cache rows pos[b] + j (one layer, or an unstacked cache, is a
@@ -493,11 +577,14 @@ def store_kv_rows(
         _require(name, t.is_contiguous(), "tensors must be contiguous")
     for t in (k8, v8, k8r, v8r):  # 16-byte row copies; the scales move one word at a time
         _require(name, t.data_ptr() % 16 == 0, "k8/v8 and the new rows must be 16-byte aligned")
+    plan = plan or _default_store_plan(nl, b, hkv, kq, hd, STORE_PDL)
+    _require(name, (plan.layers, plan.b, plan.hkv, plan.kq, plan.hd) == (nl, b, hkv, kq, hd), f"the launch plan {plan} is for another call")
+    _require(name, plan.rpt in STORE_RPTS and plan.block in STORE_BLOCKS, f"plan {plan}")
     lib = load_library()
     rc = lib.padt_store_kv_rows(
         k8.data_ptr(), ks.data_ptr(), v8.data_ptr(), vs.data_ptr(),
         k8r.data_ptr(), ksr.data_ptr(), v8r.data_ptr(), vsr.data_ptr(),
-        pos.data_ptr(), n_rows.data_ptr(), nl, b, hkv, c, kq, hd, _stream(k8),
+        pos.data_ptr(), n_rows.data_ptr(), nl, b, hkv, c, kq, hd, plan.rpt, plan.block, int(plan.pdl), _stream(k8),
     )
     check(lib, name, rc)
     launch_counts[name] += 1

@@ -43,14 +43,22 @@ _QI8_NOT_MULTI = (
 )
 
 
-def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_kv(x: torch.Tensor, out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(..., hd) -> (int8 values, fp32 scales (...,)), per-token symmetric;
-    round half to even, as jnp.round. Both outputs are contiguous."""
+    round half to even, as jnp.round. Both outputs are contiguous. `out`
+    (int8 values, fp32 scales) receives them instead, with the same bytes:
+    `int8_layers` quantizes each layer's new rows into its slice of one
+    stacked buffer, so H6 reads every layer's rows with no stacking copy."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1)
-    scale = torch.clamp(amax, min=1e-8) / 127.0
-    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
-    return q.contiguous(), scale.contiguous()
+    if out is None:
+        scale = torch.clamp(amax, min=1e-8) / 127.0
+        q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+        return q.contiguous(), scale.contiguous()
+    q8, scale = out
+    torch.div(torch.clamp(amax, min=1e-8), 127.0, out=scale)
+    q8.copy_(torch.clamp(torch.round(xf / scale[..., None]), -127, 127))  # integral values: the cast is exact
+    return q8, scale
 
 
 def empty_scale() -> float:

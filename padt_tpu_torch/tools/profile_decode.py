@@ -1,26 +1,34 @@
 """Where a serve decode step's time goes on the card.
 
-    python3 -m padt_tpu_torch.tools.profile_decode [--model 3b|7b]
+    python3 padt_tpu_torch/tools/profile_decode.py [--model 3b|7b] [--root DIR]
 
 Fills every slot of an 8-slot `ServeEngine` pool (int8 KV, packed weights: bf16 for
 PaDT-3B, int8 for PaDT-7B, random from a seed; 46x46-patch images, prompt
 640), runs one 16-step decode chunk unprofiled for the wall time per step,
 then one under `torch.profiler` and prints, per step: the device's busy time (the
 kernels' device times summed: one stream, so they do not overlap), its idle
-share of the profiled wall, the kernels by device time, and the share of
-H7 (`int8_matmul`), of the attention kernels and of H1 (`rope_qk`). Each line names the card
-and its power limit. Needs CUDA.
+share of the profiled wall, the kernels by device time, the share of
+H7 (`int8_matmul`), of the attention kernels and of H1 (`rope_qk`), and
+"H6 + row stacks": H6's (`store_kv_rows`) device time and that of the
+`torch.stack` calls of the step (older trees stacked every layer's new rows
+for H6; this one quantizes them into one stacked buffer). Each line names
+the card and its power limit. Needs CUDA.
+
+`--root` imports `padt_tpu_torch` from DIR (default: this checkout), so one
+call on the card can profile an older tree (unpacked with `git archive`
+into a directory that .gitignore lists) beside this one.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import subprocess
+import sys
 import time
 from collections import defaultdict
 
 import numpy as np
-import torch
 
 PROMPT_LEN = 640
 GRID = (1, 46, 46)
@@ -38,13 +46,15 @@ def _card() -> str:
 
 
 def _engine(model: str, dev):
-    from .. import padt_3b, padt_7b
-    from ..eval.harness import InferenceEngine
-    from ..models import padt as P
-    from ..preprocess.vision_process import ProcessedImage
-    from ..serve import ServeEngine
-    from ..utils.mock_tokenizer import make_full_tokenizer
-    from ..vrt.processor import VisionTextProcessor
+    import torch
+
+    from padt_tpu_torch import padt_3b, padt_7b
+    from padt_tpu_torch.eval.harness import InferenceEngine
+    from padt_tpu_torch.models import padt as P
+    from padt_tpu_torch.preprocess.vision_process import ProcessedImage
+    from padt_tpu_torch.serve import ServeEngine
+    from padt_tpu_torch.utils.mock_tokenizer import make_full_tokenizer
+    from padt_tpu_torch.vrt.processor import VisionTextProcessor
 
     gen = torch.Generator(device=dev).manual_seed(0)
     if model == "7b":
@@ -73,9 +83,17 @@ def _engine(model: str, dev):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", choices=("3b", "7b"), default="7b")
+    ap.add_argument("--root", default=None, help="import padt_tpu_torch from this directory")
     args = ap.parse_args()
+    root = os.path.abspath(args.root or os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."))
+    sys.path.insert(0, root)
+    import torch
+
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode needs an NVIDIA GPU")
+    import padt_tpu_torch
+
+    where = os.path.relpath(os.path.dirname(padt_tpu_torch.__file__), os.getcwd())
     dev = torch.device("cuda", 0)
     card = _card()
     eng, reqs = _engine(args.model, dev)
@@ -99,9 +117,13 @@ def main() -> int:
         raise AssertionError("a slot stopped before the profiled chunk ended")
 
     by_name = defaultdict(float)
+    stack_ms, stack_calls = 0.0, 0
     for evt in prof.key_averages():
         if evt.device_time_total > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             by_name[evt.key] += evt.device_time_total / 1e3 / STEPS  # ms per step
+        elif evt.key == "aten::stack":  # a host op: the device time of the kernels it launched
+            stack_ms += evt.device_time_total / 1e3 / STEPS
+            stack_calls += evt.count
     busy = sum(by_name.values())
     if busy <= 0:
         raise AssertionError("the profiler recorded no device time")
@@ -109,11 +131,14 @@ def main() -> int:
     h7 = ours("gemm_kernel<true")  # gemm_sm90.cuh's int8 instances (H10's are gemm_kernel<false, ...>)
     attn = ours("decode_kernel", "verify_kernel")  # H4 / H5 (csrc/int8_kv.cu)
     rope = ours("rope_qk_kernel")  # H1 (csrc/rope_qk.cu): one launch per layer of a step
-    tag = f"{args.model} {SLOTS} slots"
+    store = ours("store_rows")  # H6 (csrc/int8_kv.cu): one launch per step
+    tag = f"{args.model} {SLOTS} slots ({where})"
     print(f"[profile] {tag}: wall {wall_ms:.3f} ms/step unprofiled, {prof_ms:.3f} ms/step profiled; "
           f"device busy {busy:.3f} ms/step, idle {1 - busy / prof_ms:.3f} of the profiled wall; "
           f"H7 int8_matmul {h7:.3f} ms/step ({h7 / busy:.3f} of busy); H4 attention {attn:.3f} ms/step "
           f"({attn / busy:.3f} of busy); H1 rope {rope:.3f} ms/step ({rope / busy:.3f} of busy) ({card})")
+    print(f"[profile] {tag}: H6 + row stacks {store + stack_ms:.4f} ms/step (H6 {store:.4f}, stacks {stack_ms:.4f} "
+          f"over {stack_calls / STEPS:g} torch.stack calls a step) ({card})")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[: TOP]:
         print(f"[profile] {tag}: {ms:8.4f} ms/step  {name[:110]}")
     return 0

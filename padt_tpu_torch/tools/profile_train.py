@@ -1,11 +1,12 @@
 """Where a PaDT-3B train step's time goes on the card.
 
-    python3 -m padt_tpu_torch.tools.profile_train [--steps 2]
+    python3 -m padt_tpu_torch.tools.profile_train [--steps 2] [--unfrozen]
 
 Builds PaDT-3B at full depth and width with random bf16 weights from a
 seed, a synthetic REC dataset (46x46-patch images, one box and one RLE mask
 per sample) and `PaDTTrainer` in the single-card SFT configuration
-(`train_args`: frozen tower, AdamW, batch 8, all four losses). It runs one
+(`train_args`: frozen tower, AdamW, batch 8, all four losses; with
+`--unfrozen` the tower trains too, with per-block remat). It runs one
 step to warm up, `--steps` steps unprofiled for the wall time per step,
 then one step under `torch.profiler` (each timed around the step function:
 forward, backward and optimizer, the batch already on the card) and
@@ -13,7 +14,8 @@ prints: the device's busy time (the kernels' device times summed: one
 stream, so they do not overlap), its idle share of the unprofiled and of
 the profiled wall, the kernels by device time, and the share
 of the port's attention kernels (H1 rope, H2 flash forward, H3 window, H8
-dq, H9 dk/dv). Each line names the card and its power limit. Needs CUDA.
+dq, H9 dk/dv) and of F8's misaligned MLP GEMMs. Each line names the card
+and its power limit. Needs CUDA.
 
 `synthetic_rec`, `train_args` and `flops_per_step` are shared with
 chip_smoke.py's [train] phase.
@@ -117,10 +119,12 @@ def _leaves(tree):
             yield v
 
 
-def make_trainer(dev, n_samples: int, output_dir: str, params=None):
+def make_trainer(dev, n_samples: int, output_dir: str, params=None, **train_kw):
     """(cfg, trainer) for PaDT-3B (max_objects 8, as the single-card SFT
     setup) on `n_samples` synthetic REC samples; random bf16 weights from
-    seed 0 unless `params` is given. The trainer writes no checkpoint."""
+    seed 0 unless `params` is given; `train_kw` overrides `train_args`
+    (freeze_vision_modules=False trains the tower). The trainer writes no
+    checkpoint."""
     from .. import padt_3b
     from ..models import padt as P
     from ..train.trainer import PaDTTrainer
@@ -133,7 +137,7 @@ def make_trainer(dev, n_samples: int, output_dir: str, params=None):
     proc = VisionTextProcessor(make_full_tokenizer(cfg), cfg)
     proc.prepare(cfg.text.vocab_size)
     rows, images = synthetic_rec(n_samples, GRID)
-    trainer = PaDTTrainer(cfg, params, proc, train_args(output_dir), rows, images=images, device=dev)
+    trainer = PaDTTrainer(cfg, params, proc, train_args(output_dir, **train_kw), rows, images=images, device=dev)
     trainer.save_checkpoint = lambda *a, **k: None  # a 20 GB checkpoint write is not part of a step
     return cfg, trainer
 
@@ -141,6 +145,7 @@ def make_trainer(dev, n_samples: int, output_dir: str, params=None):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=2, help="unprofiled steps timed after one warm-up step")
+    ap.add_argument("--unfrozen", action="store_true", help="train the tower too (TrainArgs' default)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs an NVIDIA GPU")
@@ -150,7 +155,7 @@ def main() -> int:
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     records = []  # (ms, profile or None) per step: one warm-up, args.steps timed, one profiled
     with tempfile.TemporaryDirectory() as out:
-        cfg, trainer = make_trainer(dev, BATCH * n_steps, out)
+        cfg, trainer = make_trainer(dev, BATCH * n_steps, out, freeze_vision_modules=not args.unfrozen)
         step_fn = trainer._fn
 
         def timed(kind, *key):
@@ -191,11 +196,16 @@ def main() -> int:
         "H9 dkv": ours("fbwd::dkv::dkv_kernel"),
     }
     wall = float(np.mean(walls))
-    print(f"[profile_train] 3b batch {BATCH}, L {PROMPT_BUCKET + COMPLETION_BUCKET}: wall {wall:.1f} ms/step unprofiled "
+    # F8: the tower's MLP GEMMs at ff 3420 (a width that is no multiple of 8 elements) fall to cuBLAS's sm80 "align2"
+    # kernels
+    f8 = sum(v for k, v in by_name.items() if "align2" in k)
+    tower = "tower trained" if args.unfrozen else "tower frozen"
+    print(f"[profile_train] 3b batch {BATCH}, L {PROMPT_BUCKET + COMPLETION_BUCKET}, {tower}: wall {wall:.1f} ms/step unprofiled "
           f"(mean of {len(walls)}), {prof_ms:.1f} ms profiled; device busy {busy:.1f} ms: idle {1 - busy / wall:.3f} of the "
           f"unprofiled wall, {1 - busy / prof_ms:.3f} of the profiled one; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} "
           f"GB allocated ({name})")
-    print("[profile_train] attention kernels: " + ", ".join(f"{k} {v:.2f} ms ({v / busy:.3f} of busy)" for k, v in parts.items()))
+    print("[profile_train] attention kernels: " + ", ".join(f"{k} {v:.2f} ms ({v / busy:.3f} of busy)" for k, v in parts.items())
+          + f"; F8 (sm80 align2 GEMMs) {f8:.2f} ms ({f8 / busy:.3f} of busy)")
     for k, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]:
         print(f"[profile_train] {ms:9.3f} ms  {k[:110]}")
     return 0

@@ -5,9 +5,9 @@ functions built from them.
 `padt_loss` = token CE with the robust VP mask + bbox (GIoU + L1) + score
 MSE + mask (dice + focal), with the warm-up substitution (the decoder reads
 the picked VRT prototypes instead of the hidden states early in training).
-The forward is `forward_train(remat=True)`: each text layer is checkpointed,
-and attention and rope go through their autograd Functions (H2 with LSE,
-H8/H9; H1 and its VJP).
+The forward is `forward_train(remat=True)`: each text layer and, unless
+frozen, each tower block is checkpointed, and attention and rope go through
+their autograd Functions (H2 with LSE, H8/H9; H1 and its VJP).
 
 Parameters are a nested dict of leaf tensors, as the JAX tree. The step
 functions update them in place (`torch.optim` semantics), where the JAX
@@ -85,17 +85,28 @@ def padt_loss(params, cfg: PaDTConfig, batch: Dict[str, torch.Tensor], prompt_le
     return total, metrics
 
 
-def train_step_launches(cfg: PaDTConfig, slot_layout: bool = True) -> Dict[str, int]:
-    """The kernel wrappers one train step with a frozen tower calls (its
-    launches on the card): per text layer H2 twice (the forward and the
-    checkpoint's recompute), H1 three times (forward, recompute and VJP),
-    H8 and H9 once; the tower's forward H1 once per block, H2 per full
-    block and, on the window-slot layout, H3 per windowed block (H2
-    otherwise); the decoder's six rotary projections (two in each of its
-    three blocks) H1 forward and VJP."""
+def train_step_launches(cfg: PaDTConfig, slot_layout: bool = True, freeze_vision: bool = True) -> Dict[str, int]:
+    """The kernel wrappers one train step calls (its launches on the card).
+    Per text layer: H2 twice (the forward and the checkpoint's recompute),
+    H1 three times (forward, recompute and VJP), H8 and H9 once. The
+    decoder's six rotary projections (two in each of its three blocks): H1
+    forward and VJP. The frozen tower (the default, as `train_args`
+    configures it) runs its forward once: H1 per block, H2 per full block
+    and, on the window-slot layout, H3 per windowed block (H2 otherwise).
+    The trained tower (`freeze_vision=False`, per-block remat) runs every
+    block as a text layer runs: H1 three times, H2 twice (over its segment
+    or slot ids), H8 and H9 once, and never H3."""
     nl, vc = cfg.text.num_hidden_layers, cfg.vision
     n_full = len(vc.fullatt_block_indexes)
     n_win = vc.depth - n_full
+    if not freeze_vision:
+        counts = {
+            "rope_qk": 3 * nl + 3 * vc.depth + 2 * 6,
+            "segment_flash_fwd": 2 * nl + 2 * vc.depth,
+            "flash_bwd_dq": nl + vc.depth,
+            "flash_bwd_dkv": nl + vc.depth,
+        }
+        return dict(counts, window_slot_attn=0) if slot_layout else counts
     counts = {
         "rope_qk": 3 * nl + vc.depth + 2 * 6,
         "segment_flash_fwd": 2 * nl + n_full + (0 if slot_layout else n_win),

@@ -1071,3 +1071,146 @@ def test_wrappers_refuse_inputs_that_require_grad(dev):
         CA.segment_flash_fwd(q, q, q, seg, seg, True, 0.125)
         CA.rope_qk(q.flatten(2), None, cos, cos * 0, 2, 0)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# H6 store_kv_rows at the main path's shapes; the trained vision tower (H1
+# + H2 with its LSE, H8 + H9 over its segment and slot ids) and PaDTTrainer
+# with its default arguments
+# ---------------------------------------------------------------------------
+
+
+# (layers, slots, kv heads, rows per slot, hd): 3B decode, speculative verify and suffix pass over the 16-slot
+# pool of chip_smoke's lines, PaDT-7B's decode, [forms]' one-layer views
+STORE_SHAPES = [(36, 16, 2, 1, 128), (36, 16, 2, 4, 128), (36, 16, 2, 32, 128), (28, 8, 4, 1, 128), (1, 16, 2, 1, 128),
+                (1, 16, 2, 32, 128)]
+
+
+@pytest.mark.parametrize("shape", STORE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_store_kv_rows_main_path_shapes(dev, shape):
+    """Byte-identical to the twin; n_rows 0, partial and kq, positions at 0,
+    C - kq, C - 1 (rows past C dropped) and below 0; every instance (rows a
+    thread) and block of the plan, with and without programmatic dependent
+    launch, gives the same bytes."""
+    from padt_tpu_torch.ops import cuda_kv as K
+
+    nl, b, hkv, kq, hd = shape
+    c = 200
+    g = torch.Generator(device=dev).manual_seed(nl + kq)
+    cache = _int8_cache(g, dev, nl, b, hkv, c, hd, 1)[:4]
+    new = _int8_cache(g, dev, nl, b, hkv, kq, hd, 1)[:4]
+    edge = [0, c - kq, c - 1, -1, 77]
+    pos = torch.tensor([edge[i % len(edge)] for i in range(b)], dtype=torch.int32, device=dev)
+    n_rows = torch.tensor([(kq, 0, max(kq // 2, 1))[i % 3] for i in range(b)], dtype=torch.int32, device=dev)
+    ref = [t.clone() for t in cache]
+    K.store_kv_rows_plain(*ref, *new, pos, n_rows)
+    plans = [None] + [K.store_plan(nl, b, hkv, kq, hd, rpt=rpt, block=blk, pdl=pdl)
+                      for rpt in K.STORE_RPTS for blk in K.STORE_BLOCKS for pdl in (False, True)]
+    for plan in plans:
+        got = [t.clone() for t in cache]
+        n0 = K.launch_counts["store_kv_rows"]
+        K.store_kv_rows(*got, *new, pos, n_rows, plan=plan)
+        torch.cuda.synchronize()
+        assert K.launch_counts["store_kv_rows"] == n0 + 1
+        for a, r, name in zip(got, ref, ("k8", "ks", "v8", "vs")):
+            assert torch.equal(a, r), (name, plan)
+
+
+def test_store_kv_rows_refuses_rows_it_cannot_read(dev):
+    """New rows that are not contiguous, of another dtype, on another
+    device, or that do not start 16-byte aligned are refused, whichever of
+    the four tensors it is."""
+    from padt_tpu_torch.ops import cuda_kv as K
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    k8, ks, v8, vs = _int8_cache(g, dev, 2, 2, 2, 64, 128, 1)[:4]
+    new = _int8_cache(g, dev, 2, 2, 2, 4, 128, 1)[:4]
+    pos = torch.zeros(2, dtype=torch.int32, device=dev)
+    n = torch.full((2,), 4, dtype=torch.int32, device=dev)
+    strided = lambda t: t.transpose(2, 3).contiguous().transpose(2, 3)
+    shifted = lambda t: torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:].view(t.shape)
+    for i in range(4):
+        for bad, what in ((strided, "contiguous"), (lambda t: t.cpu(), "device"), (shifted, "aligned"),
+                          (lambda t: t.to(torch.bfloat16 if t.dtype == torch.float32 else torch.int16), "must be")):
+            if what == "aligned" and i % 2:  # the scales move one word at a time: any 4-byte address will do
+                continue
+            rows = list(new)
+            rows[i] = bad(rows[i])
+            with pytest.raises(ValueError, match=what):
+                K.store_kv_rows(k8, ks, v8, vs, *rows, pos, n)
+
+
+@pytest.mark.parametrize("windowed", [False, True])
+def test_vision_attention_trains_through_the_kernels(dev, windowed):
+    """The vision calls under grad on the card: H1 + H2 with its LSE
+    forward, H8 + H9 and H1 with the sin negated backward, over the slot
+    ids on the window layout (no H3); d(qkv) close to the twins' on the same
+    inputs moved to the CPU in float32 (pad rows: zero cotangent). The
+    wrappers themselves still raise on inputs that require grad."""
+    from padt_tpu_torch.ops import attention as A
+    from padt_tpu_torch.ops import cuda_flash_bwd as FB
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    grids = [(1, 16, 20), (1, 12, 12)]
+    geo = vision_geometry(grids, 768)
+    assert geo.pack_index is not None
+    seg = torch.as_tensor(geo.seg_win if windowed else geo.seg_full, device=dev)
+    b, s, h, hd = 2, 768, 16, 80
+    cos, sin = _tables(b, s, hd, dev, g)
+    qkv = _randn(g, (b, s, 3 * h * hd), dev)
+    w = _randn(g, (b, s, h * hd), dev) * (seg >= 0)[:, :, None]
+    fn = A.window_attention_qkv if windowed else A.fused_vision_attention_qkv
+
+    def run(qkv, cos, sin, seg, w):
+        x = qkv.detach().requires_grad_()
+        (fn(x, cos, sin, seg, h, scale=hd**-0.5, rope_dim=hd).float() * w.float()).sum().backward()
+        return x.grad.float().cpu()
+
+    n0 = {k: C.launch_counts[k] for k in C.launch_counts}
+    b0 = dict(FB.launch_counts)
+    got = run(qkv, cos, sin, seg, w)
+    torch.cuda.synchronize()
+    assert {k: C.launch_counts[k] - n0[k] for k in n0} == {"rope_qk": 2, "segment_flash_fwd": 1, "window_slot_attn": 0}
+    assert all(FB.launch_counts[k] == b0[k] + 1 for k in b0)
+    cpu = lambda t: t.float().cpu()
+    ref = run(cpu(qkv), cpu(cos), cpu(sin), seg.cpu(), cpu(w))
+    assert (got - ref).abs().max().item() <= 3e-2 * ref.abs().max().item()
+    assert ((got - ref).norm() / ref.norm()).item() <= 1e-2
+    with pytest.raises(RuntimeError, match="cut the autograd graph"):
+        C.rope_qk(qkv[..., : h * hd].clone().requires_grad_(), None, cos, sin, h, 0)
+
+
+def test_trainer_with_default_args_trains_the_tower(dev, tmp_path):
+    """PaDTTrainer with TrainArgs' defaults (the tower trained, AdamW) on
+    the tiny model takes two steps on the card: finite losses, every tower
+    block leaf moved (or, a bf16 norm weight of 1.0, was reached by a
+    gradient smaller than a bf16 step of 1.0, as chip_smoke's [train-tower]
+    allows)."""
+    import numpy as np
+
+    from padt_tpu_torch import padt_tiny
+    from padt_tpu_torch.models import padt as P
+    from padt_tpu_torch.tools.profile_train import synthetic_rec
+    from padt_tpu_torch.train.train_step import flat_leaves
+    from padt_tpu_torch.train.trainer import PaDTTrainer, TrainArgs
+    from padt_tpu_torch.utils.mock_tokenizer import make_tiny_tokenizer
+    from padt_tpu_torch.vrt.processor import VisionTextProcessor
+
+    cfg = padt_tiny()
+    proc = VisionTextProcessor(make_tiny_tokenizer(cfg), cfg, seq_bucket=32, patch_bucket=cfg.max_image_patches)
+    proc.prepare(cfg.text.vocab_size)
+    rows, images = synthetic_rec(4, grid=(1, 16, 16), seed=5)
+    params = P.init_padt_params(cfg, torch.Generator(device=dev).manual_seed(4), dev, torch.bfloat16)
+    args = TrainArgs(output_dir=str(tmp_path), per_device_train_batch_size=2)
+    assert not args.freeze_vision_modules and args.optimizer == "adamw"
+    trainer = PaDTTrainer(cfg, params, proc, args, rows, images=images, device=dev)
+    before = {n: t.detach().clone() for n, t in flat_leaves(trainer.params["vision"]["blocks"])}
+    metrics = trainer.train()
+    assert trainer.global_step == 2 and len(metrics) == 2
+    assert all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in metrics)
+    exp_avg = {n: trainer.optimizer.inner.state[t]["exp_avg"] for n, t in trainer.optimizer.leaves}
+    unmoved = [n for n, t in flat_leaves(trainer.params["vision"]["blocks"]) if torch.equal(t, before[n])]
+    unreached = [n for n in unmoved
+                 if not (bool((before[n] == 1).all()) and float(exp_avg["vision.blocks." + n].abs().max()) > 0)]
+    assert not unreached, f"tower block leaves that neither moved nor are bf16 ones reached by a gradient: {unreached}"
+    assert len(unmoved) < len(before), "no tower block leaf moved"
