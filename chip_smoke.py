@@ -74,7 +74,19 @@ one process per source, into build/padt_tpu_torch/), then:
      `run_stream` of 16 requests over 8 slots (step 6's first run is the one
      without); exact QI8 launches (36 per decode step), finite outputs, the
      greedy tokens' agreement printed;
-  8. [train]: trains PaDT-3B through `PaDTTrainer.train()` for 4 steps on
+  8. [pipeline]: the released-checkpoint path on the same weights:
+     `save_hf_checkpoint` (two 4 GiB shards + index, bf16),
+     `tools/convert_checkpoint` HF -> native, `api.load_model` of each
+     directory onto the card (every leaf bit-equal to the phase 5 weights by
+     key, dtype and device), `run_batch` on the loaded weights (completions
+     equal to phase 5's, H1-H3 at their floors) and `run_stream` of 8
+     requests (H4 and H6 at their floors), each with the counters reset just
+     before and read just after; then `tools/infer_eval.py infer` over 8
+     PNGs the phase writes (PIL imports on the card) and `score` as COCO and
+     RefCOCO against the ground truth it writes (printed); prints the GB and
+     seconds of the export, the conversion and each load; the temporary
+     directories are removed in a `finally`;
+  9. [train]: trains PaDT-3B through `PaDTTrainer.train()` for 4 steps on
      the same (random, seeded) weights: frozen tower, AdamW (lr 2e-5, max
      grad norm 1.0), batch 8 of a synthetic 32-sample REC dataset (46x46
      patches, one box and one RLE mask each), prompt bucket 640 +
@@ -92,7 +104,7 @@ one process per source, into build/padt_tpu_torch/), then:
      grad norms, every tower leaf moved (or, a bf16 one, reached by a
      gradient), peak memory under 80 GB; prints s/step, tokens/s, MFU
      (the tower counted 3x) and the peak;
-  9. [7b]: frees PaDT-3B, builds PaDT-7B at full depth and width with int8
+  10. [7b]: frees PaDT-3B, builds PaDT-7B at full depth and width with int8
      packed text-layer weights on the card (`init_padt_params_quantized`,
      seeded), holds H7 against its twin at the 7B products' shapes (M = 4
      and 8 decode rows, M = 2560 prefill rows, walking the 28 layers' weights),
@@ -101,12 +113,12 @@ one process per source, into build/padt_tpu_torch/), then:
      with the launch counters reset before and read after, checks the
      outputs and the launch floors, and prints the times and H7's launches
      split by M;
- 10. [stream]: `tools/micro_stream_matmul.py` at PaDT-3B, B = 96, 36 layers
+ 11. [stream]: `tools/micro_stream_matmul.py` at PaDT-3B, B = 96, 36 layers
      (torch, H10 with the norms fused, H10 without): device ms and GB/s per
      pass, exactly 4 x 36 H10 launches per pass, each output as close to the
      float32 loop as twice the torch variant's; then H10's kernel lines at
      the four products, fused and unfused;
- 11. prints the yardstick lines' JSON (shapes no path runs: H2 over
+ 12. prints the yardstick lines' JSON (shapes no path runs: H2 over
      seg_win and H8 / H9 over seg_full and seg_win at 2 x 2304, H8 / H9 at
      PaDT-7B's heads, H1 at earlier PRs' shapes; launches 0), the kernels'
      JSON line, then the result line
@@ -978,7 +990,7 @@ def phase_run_batch(tag, dev, card, cfg, params, proc):
     """run_batch of BATCH REC queries with the launch counters reset just
     before and read just after; then generate, vision and prefill timed
     through the same public functions, and every output checked for shape
-    and finiteness. Returns the launch counts of run_batch."""
+    and finiteness. Returns the launch counts and the results of run_batch."""
     from padt_tpu_torch.eval.harness import InferenceEngine
     from padt_tpu_torch.models import language
     from padt_tpu_torch.models import padt as P
@@ -1071,7 +1083,7 @@ def phase_run_batch(tag, dev, card, cfg, params, proc):
         f"{NEW_TOKENS} tokens x {BATCH} rows -> {BATCH * NEW_TOKENS / (decode_ms / 1e3):.1f} tok/s, "
         f"{decode_ms / (NEW_TOKENS - 1):.3f} ms per decode step; vl_decode {BATCH} objects (bucket {cfg.max_objects}) "
         f"{t_dec * 1e3:.2f} ms; batch {BATCH}, prompt {PROMPT_LEN}, bf16 KV ({card})")
-    return counts
+    return counts, results
 
 
 def phase_tiny_reference(dev):
@@ -1618,7 +1630,7 @@ def phase_7b(dev, card):
 
     proc = _processor(cfg)
     counters = _counters()
-    counts_b = phase_run_batch("7b", dev, card, cfg, params, proc)
+    counts_b, _ = phase_run_batch("7b", dev, card, cfg, params, proc)
     check_launches(cfg, counts_b, "the 7B run_batch")
     # one prefill pass and NEW_TOKENS - 1 decode steps, unless every row hit EOS early
     check_int8_matmul_launches(cfg, counts_b["int8_matmul"], NEW_TOKENS, "the 7B run_batch")
@@ -1809,6 +1821,182 @@ def phase_qi8(dev, card, cfg, model, proc, base):
     return {k: r1["gcounts"][k] + scounts[k] for k in scounts}
 
 
+PIPELINE_IMAGES = 8  # PNGs the [pipeline] phase writes and runs through tools/infer_eval.py infer
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, prefix + k + "/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _pipeline_data(root):
+    """8 random 644x644 PNGs (PIL imports on the card) and the processed JSONL
+    / COCO annotations that name them: one object per image, a box, its RLE
+    mask and a label from PROMPTS."""
+    import numpy as np
+    import PIL.Image
+
+    from padt_tpu_torch.eval import rle
+
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir)
+    rng = np.random.RandomState(7)
+    side = GRID[1] * 14
+    rows, cats = [], {}
+    for i in range(PIPELINE_IMAGES):
+        PIL.Image.fromarray(rng.randint(0, 256, (side, side, 3), np.uint8)).save(os.path.join(img_dir, f"{i}.png"))
+        label = PROMPTS[i % len(PROMPTS)].split('"')[1]
+        cats.setdefault(label, len(cats) + 1)
+        x1, y1 = rng.randint(0, side // 2, 2)
+        w, h = rng.randint(28, side // 2, 2)
+        mask = np.zeros((side, side), np.uint8)
+        mask[y1 : y1 + h, x1 : x1 + w] = 1
+        rows.append({
+            "id": i, "image": f"{i}.png", "answer_template": 'The "x" refers to <|Obj_0|> in this image.',
+            "conversations": [{"from": "human", "value": "<image>" + PROMPTS[i % len(PROMPTS)]}],
+            "objects": [{"bbox": [x1 / side, y1 / side, (x1 + w) / side, (y1 + h) / side], "area": float(w * h),
+                         "iscrowd": 0, "label": label, "rle": rle.encode(mask)}],
+        })
+    data = os.path.join(root, "pipeline_val.jsonl")
+    with open(data, "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in rows)
+    coco = os.path.join(root, "instances_pipeline.json")
+    with open(coco, "w") as f:
+        json.dump({"categories": [{"id": c, "name": n} for n, c in cats.items()],
+                   "images": [{"id": r["id"], "height": side, "width": side} for r in rows]}, f)
+    return img_dir, data, coco
+
+
+def phase_pipeline(dev, card, cfg, params, proc, slice_results):
+    """[pipeline]: the released-checkpoint path on PaDT-3B's [slice] weights,
+    through the entry points a user calls: `save_hf_checkpoint` writes them
+    as an HF directory (4 GiB shards + index), `tools/convert_checkpoint`
+    turns it into the native format, `api.load_model` loads each directory
+    onto the card (every leaf bit-equal to [slice]'s by key, same dtype, on
+    cuda); an `InferenceEngine` on the loaded weights with [slice]'s
+    processor runs [slice]'s run_batch (completions equal to [slice]'s, H1-H3
+    at their floors) and run_stream of 8 requests (H4 and H6 at their
+    floors), each with the launch counters reset just before and read just
+    after; then `tools/infer_eval.py infer --engine stream` runs 8 PNGs the
+    phase writes (PIL imports on the card) into prediction JSONL through
+    infer_dataset's writer, and `tools/infer_eval.py score` scores them as
+    COCO and as RefCOCO against the ground truth the phase writes (printed:
+    random weights). The temporary directories go in a `finally`; any
+    failure propagates."""
+    import shutil
+    import tempfile
+
+    from padt_tpu_torch import api
+    from padt_tpu_torch.convert.padt_to_hf import save_hf_checkpoint
+    from padt_tpu_torch.eval.harness import InferenceEngine
+    from padt_tpu_torch.tools import convert_checkpoint, infer_eval
+
+    want = _flat(params)
+    root = tempfile.mkdtemp(prefix="padt_pipeline_")
+    try:
+        hf, native = os.path.join(root, "hf"), os.path.join(root, "native")
+        t0 = time.perf_counter()
+        save_hf_checkpoint(hf, params, cfg)
+        t_export = time.perf_counter() - t0
+        shards = sorted(f for f in os.listdir(hf) if f.endswith(".safetensors"))
+        gb = sum(os.path.getsize(os.path.join(hf, f)) for f in shards) / 1e9
+        log(f"[pipeline] save_hf_checkpoint: {gb:.3f} GB in {len(shards)} shards + index in {t_export:.1f} s ({card})")
+        if len(shards) < 2 or not os.path.exists(os.path.join(hf, "model.safetensors.index.json")):
+            raise AssertionError(f"[pipeline] expected 4 GiB shards and an index, got {sorted(os.listdir(hf))}")
+        t0 = time.perf_counter()
+        if convert_checkpoint.main(["--src", hf, "--dst", native]) != 0:
+            raise AssertionError("[pipeline] convert_checkpoint failed")
+        t_convert = time.perf_counter() - t0
+        gb_native = os.path.getsize(os.path.join(native, api.NATIVE_PARAMS)) / 1e9
+        log(f"[pipeline] tools/convert_checkpoint HF -> native (host): {gb_native:.3f} GB in {t_convert:.1f} s ({card})")
+
+        loaded = None
+        for what, path in (("HF", hf), ("native", native)):
+            del loaded
+            gc.collect()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lcfg, loaded, _ = api.load_model(path, device=dev)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+            if lcfg != cfg:
+                raise AssertionError(f"[pipeline] the {what} checkpoint's config differs from [slice]'s: {lcfg}")
+            got = _flat(loaded)
+            if set(got) != set(want):
+                raise AssertionError(f"[pipeline] {what} keys differ: {sorted(set(got) ^ set(want))[:8]}")
+            for k, v in want.items():
+                g = got[k]
+                if g.dtype != v.dtype or g.device != v.device or g.shape != v.shape or not torch.equal(g, v):
+                    raise AssertionError(f"[pipeline] {what} leaf {k} is not [slice]'s ({g.dtype} {g.device} {tuple(g.shape)})")
+            log(f"[pipeline] api.load_model({what}) onto {dev}: {len(got)} leaves bit-equal to [slice]'s by key, "
+                f"{t_load:.1f} s ({card})")
+
+        counters = _counters()
+        engine = InferenceEngine(loaded, cfg, proc, max_new_tokens=NEW_TOKENS)
+        for c in counters:
+            c.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = engine.run_batch(PROMPTS[:BATCH], [_u8_image(i) for i in range(BATCH)], prompt_bucket=PROMPT_LEN)
+        torch.cuda.synchronize()
+        wall_b = time.perf_counter() - t0
+        counts_b = _with_rope_shapes({k: v for c in counters for k, v in c.launch_counts.items()})
+        check_launches(cfg, counts_b, "the [pipeline] run_batch")
+        if [r.completion for r in results] != [r.completion for r in slice_results]:
+            raise AssertionError("[pipeline] run_batch on the loaded weights differs from [slice]'s completions")
+        n_obj = sum(len(r.objects) for r in results)
+        log(f"[pipeline] run_batch on the loaded weights: {BATCH} completions equal to [slice]'s, {n_obj} objects, "
+            f"{wall_b:.3f} s wall; launches {counts_b} ({card})")
+
+        n_req = 8
+        for c in counters:
+            c.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sresults = engine.run_stream(_serve_prompts()[:n_req], [_u8_image(100 + i) for i in range(n_req)],
+                                     n_slots=SERVE_SLOTS, prefill_bucket=SERVE_BUCKET, prompt_bucket=PROMPT_LEN)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts_s = _with_rope_shapes(_with_kq({k: v for c in counters for k, v in c.launch_counts.items()}))
+        _check_results("[pipeline] run_stream", sresults, n_req)
+        sp = engine.pop_stream_stats()
+        check_serve_launches(cfg, counts_s, {"decode": sp["decode_steps"], "verify": 0, "suffix": sp["suffix_passes"]},
+                             "the [pipeline] run_stream")
+        log(f"[pipeline] run_stream of {n_req} requests on the loaded weights: {wall_s:.3f} s wall, "
+            f"{sp['decode_steps']} decode steps; launches {counts_s} ({card})")
+        del engine, loaded
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        img_dir, data, coco = _pipeline_data(root)
+        out = os.path.join(root, "eval")
+        t0 = time.perf_counter()
+        infer_eval.main(["infer", "--model", native, "--data", data, "--image_folder", img_dir, "--output_dir", out,
+                         "--dataset", "pipeline", "--suffix", "chip", "--batch_size", str(PIPELINE_IMAGES),
+                         "--max_new_tokens", str(NEW_TOKENS), "--engine", "stream", "--n_slots", str(SERVE_SLOTS),
+                         "--prefill_bucket", str(SERVE_BUCKET), "--device", str(dev)])
+        t_infer = time.perf_counter() - t0
+        preds = os.path.join(out, "pipeline_*_pred_results_chip.json")
+        with open(os.path.join(out, "pipeline_0_pred_comp_chip.json")) as f:
+            n_comp = sum(1 for _ in f)
+        if n_comp != PIPELINE_IMAGES:
+            raise AssertionError(f"[pipeline] infer wrote {n_comp} completions for {PIPELINE_IMAGES} images")
+        coco_stats = infer_eval.main(["score", "--task", "coco", "--pred_glob", preds, "--processed_json", data,
+                                      "--coco_json", coco])
+        ref_stats = infer_eval.main(["score", "--task", "refcoco", "--pred_glob", preds, "--processed_json", data])
+        log(f"[pipeline] tools/infer_eval.py infer (load_model + infer_dataset, stream engine) of {PIPELINE_IMAGES} "
+            f"PNGs: {t_infer:.1f} s wall; score: COCO AP {coco_stats['AP']} AP50 {coco_stats['AP50']}, RefCOCO "
+            f"ap50 {ref_stats['ap50']} ciou {ref_stats['ciou']} mask_ap50 {ref_stats['mask_ap50']} over "
+            f"{ref_stats['num_gt']} ground-truth objects (random weights) ({card})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 STREAM_B = 96  # decode rows of the [stream] phase (the JAX micro-benchmark's B)
 
 
@@ -1921,7 +2109,7 @@ def main() -> int:
     phase_tiny_train(dev)
     stamp("forms + tiny references")
     cfg, model, proc = load_3b(dev)
-    counts = phase_run_batch("slice", dev, card, cfg, model.params, proc)
+    counts, slice_results = phase_run_batch("slice", dev, card, cfg, model.params, proc)
     check_launches(cfg, counts)
     stamp("3B load + run_batch")
     serve_counts, forwards, serve_base = phase_serve(dev, card, cfg, model, proc)
@@ -1929,6 +2117,10 @@ def main() -> int:
     stamp("serve")
     qi8_counts = phase_qi8(dev, card, cfg, model, proc, serve_base)
     stamp("qi8")
+    phase_pipeline(dev, card, cfg, model.params, proc, slice_results)
+    gc.collect()
+    torch.cuda.empty_cache()
+    stamp("pipeline")
     params = model.params
     del model, proc
     gc.collect()

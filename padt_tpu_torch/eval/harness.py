@@ -401,6 +401,22 @@ class InferenceEngine:
         return results
 
 
+def write_predictions(res_path: str, comp_path: str, image_ids: Sequence[Any], results: Sequence[SampleResult]) -> None:
+    """Append the JAX package's JSONL rows: one row per sample to `comp_path`
+    (image_id, completion) and one per object to `res_path` (image_id,
+    score, category, bbox x,y,w,h px, mask RLE)."""
+    with open(comp_path, "a") as f:
+        for iid, res in zip(image_ids, results):
+            f.write(json.dumps({"image_id": iid, "completion": res.completion}) + "\n")
+    with open(res_path, "a") as f:
+        for iid, res in zip(image_ids, results):
+            for o in res.objects:
+                row = {"image_id": iid, "score": o.score, "category": o.label, "bbox": list(o.bbox_xywh_px)}
+                if o.mask_rle is not None:
+                    row["mask"] = {"size": o.mask_rle["size"], "counts": o.mask_rle["counts"]}
+                f.write(json.dumps(row) + "\n")
+
+
 def infer_dataset(
     engine: InferenceEngine,
     dataset: Sequence[Dict],  # rows: {id, image_path, problem}
@@ -483,16 +499,7 @@ def infer_dataset(
             t_engine += time.perf_counter() - t0
             n_done += n_real
             t0 = time.perf_counter()
-            with open(comp_path, "a") as f:
-                for r, res in zip(rows, results):
-                    f.write(json.dumps({"image_id": r["id"], "completion": res.completion}) + "\n")
-            with open(res_path, "a") as f:
-                for r, res in zip(rows, results):
-                    for o in res.objects:
-                        row = {"image_id": r["id"], "score": o.score, "category": o.label, "bbox": list(o.bbox_xywh_px)}
-                        if o.mask_rle is not None:
-                            row["mask"] = {"size": o.mask_rle["size"], "counts": o.mask_rle["counts"]}
-                        f.write(json.dumps(row) + "\n")
+            write_predictions(res_path, comp_path, [r["id"] for r in rows], results)
             t_emit += time.perf_counter() - t0
     wall = time.perf_counter() - t_all
     if n_done:

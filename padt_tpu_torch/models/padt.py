@@ -45,14 +45,20 @@ def init_padt_params(cfg: PaDTConfig, generator: torch.Generator, device, dtype=
         "decoder": init_decoder_params(cfg.decoder, generator, device, dtype),
     }
     if cfg.use_visual_prototype_projection:
-        d, r = cfg.text.hidden_size, cfg.prototype_proj_rank
-        params["proto"] = {
-            "ln_w": zeros((d,), device, dtype),  # ZeroInitLayerNorm: weight and bias zero
-            "ln_b": zeros((d,), device, dtype),
-            "down_w": normal(generator, (d, r), device, dtype),
-            "up_w": normal(generator, (r, d), device, dtype),
-        }
+        params["proto"] = init_proto_params(cfg, generator, device, dtype)
     return params
+
+
+def init_proto_params(cfg: PaDTConfig, generator: torch.Generator, device, dtype=torch.bfloat16) -> Dict[str, Any]:
+    """The visual prototype projection's leaves (ZeroInitLayerNorm: weight
+    and bias zero)."""
+    d, r = cfg.text.hidden_size, cfg.prototype_proj_rank
+    return {
+        "ln_w": zeros((d,), device, dtype),
+        "ln_b": zeros((d,), device, dtype),
+        "down_w": normal(generator, (d, r), device, dtype),
+        "up_w": normal(generator, (r, d), device, dtype),
+    }
 
 
 def init_padt_params_quantized(
