@@ -1104,6 +1104,7 @@ def phase_tiny_reference(dev):
     from padt_tpu_torch.ops import kv_cache as KC
     from padt_tpu_torch.preprocess.vision_process import ProcessedImage
     from padt_tpu_torch.serve import engine as S
+    from padt_tpu_torch.utils.profiling import Recorder
     from padt_tpu_torch.utils.mock_tokenizer import make_tiny_tokenizer
     from padt_tpu_torch.vrt.processor import VisionTextProcessor
 
@@ -1132,15 +1133,18 @@ def phase_tiny_reference(dev):
             hid, _ = language.prefill(params["text"], cfg.text, emb, tb["position_ids"], valid, valid.shape[1])
             cap = -(-(valid.shape[1] + SUFFIX_K + 1) // 128) * 128
             st = S.init_state(cfg, 2, cap, 4, dtype=params["text"]["embed"].dtype, device=device)
-            S.insert(st, S.prefill(params, cfg, tb, T(batch.rope_deltas), cap), T([0, 1]), T([4, 4]))
-            S._suffix_prefill_step(params, cfg, st, T(sfx_ids), T(sfx_len))
+            rec = Recorder()
+            S.insert(st, S.prefill(params, cfg, tb, T(batch.rope_deltas), cap, rec=rec), T([0, 1]), T([4, 4]))
+            S._suffix_prefill_step(params, cfg, st, T(sfx_ids), T(sfx_len), rec=rec)
             h_sfx = st.cur_hidden.float().cpu()
-            h_step = S._decode_step_slots(params["text"], cfg.text, P.extended_embed(params, cfg, T(step_ids), st.proto), st)
+            h_step = S._decode_step_slots(params["text"], cfg.text, P.extended_embed(params, cfg, T(step_ids), st.proto), st, rec=rec)
             st.write_pos, st.text_pos = st.write_pos + 1, st.text_pos + 1  # the next position, as decode_chunk moves it
             before = KC._QI8_DEFAULT
             KC._QI8_DEFAULT = True  # a second decode step with PADT_DECODE_QI8's int8 x int8 scores
             try:
-                h_qi8 = S._decode_step_slots(params["text"], cfg.text, P.extended_embed(params, cfg, T(qi8_ids), st.proto), st)
+                h_qi8 = S._decode_step_slots(
+                    params["text"], cfg.text, P.extended_embed(params, cfg, T(qi8_ids), st.proto), st, rec=rec,
+                )
             finally:
                 KC._QI8_DEFAULT = before
             logits = P.extended_logits(params, cfg, h_qi8, st.proto, st.num_merged)[:, 0].float().cpu()

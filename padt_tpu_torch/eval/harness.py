@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from ..config import PaDTConfig
 from ..models import padt as padt_model
 from ..preprocess.vision_process import ProcessedImage, ensure_min_28, process_image, resize_max_side
+from ..utils.profiling import Recorder
 from ..vrt.parser import pack_objects, parse_vrt_completions
 from ..vrt.processor import VisionTextProcessor
 from . import rle as rle_codec
@@ -89,6 +90,7 @@ class InferenceEngine:
         self.device = params["text"]["embed"].device
         self._serve_cache: Dict[Tuple, Any] = {}
         self._stream_stats: Optional[Dict[str, Any]] = None
+        self._recorder = Recorder()  # run_stream's host spans until pop_stream_stats
         self._stream_calls = 0
 
     def _to_device(self, data: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -235,7 +237,7 @@ class InferenceEngine:
         suffix. Prompts whose suffix exceeds `suffix_bucket` (default 128)
         tokens take the full-prompt path."""
         cfg = self.cfg
-        t_call0 = time.perf_counter()
+        rec = self._recorder
         if image_sizes is None:
             image_sizes = self._image_sizes(images)
         pb = patch_bucket or cfg.max_image_patches
@@ -243,23 +245,24 @@ class InferenceEngine:
             if prebuilt is not None:
                 reqs, prompt_bucket = prebuilt
             else:
-                reqs, prompt_bucket = self.build_stream_requests(prompts, images, patch_bucket=pb, prompt_bucket=prompt_bucket)
+                with rec.span("stream.build"):
+                    reqs, prompt_bucket = self.build_stream_requests(prompts, images, patch_bucket=pb, prompt_bucket=prompt_bucket)
             eng = self._serve_engine(
                 n_slots=min(n_slots, len(reqs)), prompt_len=prompt_bucket,
                 prefill_bucket=prefill_bucket, chunk_steps=chunk_steps, patch_bucket=pb,
             )
         else:
-            reqs, prompt_len, sbucket = self._prefix_requests(prompts, images, pb, prompt_bucket, suffix_bucket, prefix_keys)
+            with rec.span("stream.build"):
+                reqs, prompt_len, sbucket = self._prefix_requests(prompts, images, pb, prompt_bucket, suffix_bucket, prefix_keys)
             eng = self._serve_engine(
                 n_slots=min(n_slots, len(reqs)), prompt_len=prompt_len,
                 prefill_bucket=prefill_bucket, chunk_steps=chunk_steps,
                 patch_bucket=pb, suffix_bucket=sbucket, prefix_cache_entries=prefix_cache_entries,
             )
-        t_run0 = time.perf_counter()
-        comps, sstats = eng.run(reqs)
-        t_run1 = time.perf_counter()
-        out = self._stream_tail(comps, image_sizes)
-        self._record_stream_stats(t_call0, t_run0, t_run1, sstats)
+        comps, sstats = eng.run(reqs, rec=rec)
+        with rec.span("stream.tail"):
+            out = self._stream_tail(comps, image_sizes)
+        self._record_stream_stats(sstats)
         return out
 
     def _prefix_requests(self, prompts, images, pb, prompt_bucket, suffix_bucket, prefix_keys):
@@ -319,30 +322,41 @@ class InferenceEngine:
         fb_max = max((q.batch["input_ids"].shape[1] for q in reqs if q.batch is not None), default=0)
         return reqs, max(ups[-1] + sbucket, fb_max), sbucket
 
-    def _record_stream_stats(self, t_call0, t_run0, t_run1, sstats):
-        """Accumulate run_stream's split across calls: build_s (host request
-        construction), run_s (ServeEngine.run wall), tail_s (parse +
-        vl_decode + masks), the engine's device prefill / decode seconds, and
-        its token, decode-step and suffix-pass counts. Read and reset with
-        `pop_stream_stats`."""
+    _STREAM_COUNTS = (
+        "generated_tokens", "decode_steps", "suffix_passes", "admissions",
+        "prompt_tokens", "prompt_slots", "patches", "patch_slots",
+    )
+
+    def _record_stream_stats(self, sstats):
+        """Accumulate the serve engine's device prefill / decode seconds and
+        its counters across run_stream calls, until `pop_stream_stats`."""
         acc = self._stream_stats
         if acc is None:
-            acc = self._stream_stats = {
-                "build_s": 0.0, "run_s": 0.0, "tail_s": 0.0,
-                "engine_prefill_s": 0.0, "engine_decode_s": 0.0, "generated_tokens": 0,
-                "decode_steps": 0, "suffix_passes": 0,
-            }
-        acc["build_s"] += t_run0 - t_call0
-        acc["run_s"] += t_run1 - t_run0
-        acc["tail_s"] += time.perf_counter() - t_run1
+            acc = self._stream_stats = {"engine_prefill_s": 0.0, "engine_decode_s": 0.0, **dict.fromkeys(self._STREAM_COUNTS, 0)}
         acc["engine_prefill_s"] += sstats.prefill_s
         acc["engine_decode_s"] += sstats.decode_s
-        for k in ("generated_tokens", "decode_steps", "suffix_passes"):
+        for k in self._STREAM_COUNTS:
             acc[k] += getattr(sstats, k)
 
     def pop_stream_stats(self) -> Optional[Dict[str, Any]]:
-        s, self._stream_stats = self._stream_stats, None
-        return s
+        """run_stream's split since the last pop (None without a call):
+        build_s / run_s / tail_s, the host seconds of the spans
+        `stream.build` (request construction), `serve.run` (the serve
+        engine's run) and `stream.tail` (parse + vl_decode + masks); the
+        engine's device prefill / decode seconds and its counters
+        (`ServeStats`); `host_s` / `host_n`, every span name's host seconds
+        and count; and `spans`, the span list, where tracing was on
+        when the last call's outermost spans opened (`utils.profiling`)."""
+        acc, self._stream_stats = self._stream_stats, None
+        rec, self._recorder = self._recorder, Recorder()
+        if acc is None:
+            return None
+        host = rec.seconds()
+        out = {"build_s": host.get("stream.build", 0.0), "run_s": host.get("serve.run", 0.0),
+               "tail_s": host.get("stream.tail", 0.0), **acc, "host_s": host, "host_n": dict(rec.counts)}
+        if rec.spans is not None:
+            out["spans"] = rec.span_tuples()
+        return out
 
     @torch.no_grad()
     def _stream_tail(self, comps, image_sizes) -> List[SampleResult]:
@@ -510,6 +524,10 @@ def infer_dataset(
         }
         split = engine.pop_stream_stats() if stream else None
         if split:
-            stats["stream_split"] = {k: (round(v, 2) if isinstance(v, float) else v) for k, v in split.items()}
+            split.pop("spans", None)
+            r2 = lambda v: round(v, 2) if isinstance(v, float) else v
+            stats["stream_split"] = {
+                k: ({n: r2(x) for n, x in v.items()} if isinstance(v, dict) else r2(v)) for k, v in split.items()
+            }
         print(json.dumps({"infer_dataset_stats": stats}))
     return res_path, comp_path

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -330,9 +331,12 @@ def vision_features(params, cfg: PaDTConfig, batch, quant: str = "none"):
     return {"vis_merged": art.merged, "vis_high_res": art.high_res, "vis_pe_cos": art.pe_cos, "vis_pe_sin": art.pe_sin}
 
 
+@functools.lru_cache(maxsize=None)
 def _pixel_u8_lut(dtype=torch.float32, device=None) -> torch.Tensor:
     """(3, 256) per-channel table lut[c, v] = (f32(v)/255 - mean[c]) / std[c],
-    built with the numpy expression the host pipeline uses."""
+    built with the numpy expression the host pipeline uses; made once per
+    dtype and device (a copy from the host a call would wait for the
+    device's queue to drain)."""
     v = np.arange(256, dtype=np.float32) / np.float32(255.0)
     mean = np.asarray(OPENAI_CLIP_MEAN, np.float32)[:, None]
     std = np.asarray(OPENAI_CLIP_STD, np.float32)[:, None]

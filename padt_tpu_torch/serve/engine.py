@@ -18,7 +18,15 @@ text-layer product of every forward runs H7 (`int8_matmul`, through
 `ServeStats.prefill_s` / `decode_s` are device time between CUDA events,
 read at each chunk's flag readback (host clock on the CPU, where work is
 synchronous): the JAX engine's `prefill_s` measured dispatch only and its
-device prefill landed in `decode_s`. Not ported: `MultiEngine` (one replica
+device prefill landed in `decode_s`. Host time goes to a
+`utils.profiling.Recorder` in spans named after the code they cover
+(`serve.run`, `serve.admit` > `admit.{stack,copy.readback,vision,prefill,
+insert.readback,insert,suffix}`, `serve.decode_chunk` > `decode.readback`
+and `decode.step` > `decode.{logits,layers,store}`, `serve.flag_readback`,
+`serve.harvest` > `harvest.readback`, `tokens.readback`). A span whose name
+ends in `.readback` holds a call that blocks the host until the device has
+run the work queued before it: a readback, or a synchronous copy to the
+device. A `decode.<part>.readback` lies inside `decode.step`. Not ported: `MultiEngine` (one replica
 per card, with the parallel slice) and `_pack_transient_fits` (a memory
 guard for a 16 GB TPU).
 """
@@ -43,6 +51,7 @@ from ..ops.kv_cache import (
     store_kv_rows_k_all_layers,
 )
 from ..ops.rope import mrope_cos_sin
+from ..utils.profiling import Recorder
 
 
 @dataclass
@@ -128,33 +137,39 @@ def init_state(
     )
 
 
-def prefill(params, cfg: PaDTConfig, batch: Dict[str, torch.Tensor], rope_deltas, capacity: int, return_artifacts: bool = False):
+def prefill(
+    params, cfg: PaDTConfig, batch: Dict[str, torch.Tensor], rope_deltas, capacity: int,
+    return_artifacts: bool = False, *, rec: Recorder,
+):
     """Vision + causal int8 prefill for a request bucket -> insertable pack
-    (and the bucket's `VisionArtifacts` with return_artifacts)."""
+    (and the bucket's `VisionArtifacts` with return_artifacts). Host spans
+    `admit.vision` and `admit.prefill` go to `rec`."""
     ids = batch["input_ids"]
     r, l = ids.shape
     dev = ids.device
-    art = padt_model.run_vision(params, cfg, batch)
-    embeds = padt_model.extended_embed(params, cfg, ids, art.proto, art.merged)
-    valid = batch["attention_mask"].bool()
-    hidden, qc = language.prefill(
-        params["text"], cfg.text, embeds, batch["position_ids"], valid, capacity, kv_dtype="int8",
-    )
-    # left-aligned prompt context for draft lookups (prompts are LEFT padded)
-    plen = valid.sum(-1)
-    cols = torch.arange(capacity, device=dev)[None, :]
-    src = (l - plen[:, None] + cols).clamp(0, l - 1)
-    ctx = torch.where(cols < plen[:, None], torch.gather(ids.long(), 1, src), -1)
-    pack = PrefillPack(
-        k8=qc.k, ks=qc.k_scale, v8=qc.v, vs=qc.v_scale, valid=qc.valid,
-        write_pos=torch.full((r,), l, dtype=torch.int64, device=dev),
-        text_pos=(l + rope_deltas.to(dev)).long(),
-        cur_hidden=hidden[:, -1:, :],
-        proto=art.proto,
-        num_merged=art.num_merged.long(),
-        prompt_ctx=ctx,
-        prompt_len=plen,
-    )
+    with rec.span("admit.vision"):
+        art = padt_model.run_vision(params, cfg, batch)
+    with rec.span("admit.prefill"):
+        embeds = padt_model.extended_embed(params, cfg, ids, art.proto, art.merged)
+        valid = batch["attention_mask"].bool()
+        hidden, qc = language.prefill(
+            params["text"], cfg.text, embeds, batch["position_ids"], valid, capacity, kv_dtype="int8",
+        )
+        # left-aligned prompt context for draft lookups (prompts are LEFT padded)
+        plen = valid.sum(-1)
+        cols = torch.arange(capacity, device=dev)[None, :]
+        src = (l - plen[:, None] + cols).clamp(0, l - 1)
+        ctx = torch.where(cols < plen[:, None], torch.gather(ids.long(), 1, src), -1)
+        pack = PrefillPack(
+            k8=qc.k, ks=qc.k_scale, v8=qc.v, vs=qc.v_scale, valid=qc.valid,
+            write_pos=torch.full((r,), l, dtype=torch.int64, device=dev),
+            text_pos=(l + rope_deltas.to(dev)).long(),
+            cur_hidden=hidden[:, -1:, :],
+            proto=art.proto,
+            num_merged=art.num_merged.long(),
+            prompt_ctx=ctx,
+            prompt_len=plen,
+        )
     return (pack, art) if return_artifacts else pack
 
 
@@ -171,7 +186,7 @@ def insert(state: DecodeState, pack: PrefillPack, slots: torch.Tensor, budgets: 
     state.cur_hidden[slots] = pack.cur_hidden.to(state.cur_hidden.dtype)
     state.proto[slots] = pack.proto.to(state.proto.dtype)
     state.num_merged[slots] = pack.num_merged
-    state.n_gen[slots] = 0
+    state.n_gen.index_fill_(0, slots, 0)  # `[slots] = 0` would copy the 0 to the device and wait
     state.budget[slots] = budgets
     state.active[slots] = budgets > 0
     state.ctx[slots] = pack.prompt_ctx
@@ -179,34 +194,40 @@ def insert(state: DecodeState, pack: PrefillPack, slots: torch.Tensor, budgets: 
     return state
 
 
-def _decode_step_slots(params, tcfg, inputs_embeds, state: DecodeState) -> torch.Tensor:
+def _decode_step_slots(params, tcfg, inputs_embeds, state: DecodeState, *, rec: Recorder) -> torch.Tensor:
     """One decode step over the pool with per-slot cache positions; returns
     the post-norm hidden (B, 1, D) and updates the state's cache and `valid`
     in place. The layer loop reads the pre-update cache (H4 with the current
     token as its fresh column); one H6 launch then writes every layer's row
     at each slot's own position. Inactive slots run too: their outputs are
-    discarded and their clamped row writes land in caches never read again."""
+    discarded and their clamped row writes land in caches never read again.
+    The host's time goes to `rec` as `decode.layers` and `decode.store`."""
     b = inputs_embeds.shape[0]
-    pos3 = state.text_pos[None, :, None].expand(3, b, 1)
-    cos, sin = mrope_cos_sin(pos3, tcfg.head_dim, tcfg.mrope_section, tcfg.rope_theta)
-    # a drained slot's write_pos can equal capacity (prompt + budget ==
-    # capacity): clamp its store into range
-    capacity = state.valid.shape[1]
-    store_pos = state.write_pos.clamp(max=capacity - 1)
-    rows = torch.arange(b, device=store_pos.device)
-    now_valid = state.valid[rows, store_pos] | state.active
-    hidden, new_rows = language.int8_layers(
-        params, tcfg, inputs_embeds, cos, sin,
-        lambda q, li, fresh: decode_attention_int8(
-            q, state.k8, state.ks, state.v8, state.vs, state.valid, layer=li, fresh_kv=fresh,
-        ),
-    )
-    store_kv_rows_all_layers(state.k8, state.ks, state.v8, state.vs, *new_rows, store_pos)
-    state.valid[rows, store_pos] = now_valid
+    with rec.span("decode.layers"):
+        pos3 = state.text_pos[None, :, None].expand(3, b, 1)
+        cos, sin = mrope_cos_sin(pos3, tcfg.head_dim, tcfg.mrope_section, tcfg.rope_theta)
+        # a drained slot's write_pos can equal capacity (prompt + budget ==
+        # capacity): clamp its store into range
+        capacity = state.valid.shape[1]
+        store_pos = state.write_pos.clamp(max=capacity - 1)
+        rows = torch.arange(b, device=store_pos.device)
+        now_valid = state.valid[rows, store_pos] | state.active
+        hidden, new_rows = language.int8_layers(
+            params, tcfg, inputs_embeds, cos, sin,
+            lambda q, li, fresh: decode_attention_int8(
+                q, state.k8, state.ks, state.v8, state.vs, state.valid, layer=li, fresh_kv=fresh,
+            ),
+        )
+    with rec.span("decode.store"):
+        store_kv_rows_all_layers(state.k8, state.ks, state.v8, state.vs, *new_rows, store_pos)
+        state.valid[rows, store_pos] = now_valid
     return hidden
 
 
-def _decode_spec_slots(params, tcfg, inputs_embeds, state: DecodeState, store_pos, active_mask=None, n_store_rows=None):
+def _decode_spec_slots(
+    params, tcfg, inputs_embeds, state: DecodeState, store_pos, active_mask=None, n_store_rows=None,
+    *, rec: Recorder,
+):
     """K-token verify forward over the pool: the K tokens' K/V are stored at
     store_pos..store_pos+K-1 and all K queries attend over one cache read
     (H5, causal inside the block). Returns hidden (B, K, D); updates the
@@ -215,31 +236,36 @@ def _decode_spec_slots(params, tcfg, inputs_embeds, state: DecodeState, store_po
     `active_mask` (B,) selects the slots whose new rows become valid (default
     `state.active`). `n_store_rows` (B,) limits how many of the K rows are
     physically written per slot (default K): a slot outside a pool-wide
-    suffix pass passes 0, since its clamped store_pos may land on live rows."""
+    suffix pass passes 0, since its clamped store_pos may land on live rows.
+    The host's time goes to `rec` as `decode.layers` and `decode.store`."""
     if active_mask is None:
         active_mask = state.active
     b, kq, _ = inputs_embeds.shape
     dev = inputs_embeds.device
-    pos3 = state.text_pos[None, :, None].expand(3, b, kq) + torch.arange(kq, device=dev)[None, None, :]
-    cos, sin = mrope_cos_sin(pos3, tcfg.head_dim, tcfg.mrope_section, tcfg.rope_theta)
-    cols = torch.arange(state.valid.shape[1], device=dev)[None, :]
-    newly = (cols >= store_pos[:, None]) & (cols < store_pos[:, None] + kq)
-    new_valid = state.valid | (newly & active_mask[:, None])
-    hidden, new_rows = language.int8_layers(
-        params, tcfg, inputs_embeds, cos, sin,
-        lambda q, li, fresh: decode_attention_int8_multi(
-            q, state.k8, state.ks, state.v8, state.vs, state.valid, store_pos, layer=li, fresh_kv=fresh,
-        ),
-    )
-    store_kv_rows_k_all_layers(state.k8, state.ks, state.v8, state.vs, *new_rows, store_pos, n_rows=n_store_rows)
-    state.valid = new_valid
+    with rec.span("decode.layers"):
+        pos3 = state.text_pos[None, :, None].expand(3, b, kq) + torch.arange(kq, device=dev)[None, None, :]
+        cos, sin = mrope_cos_sin(pos3, tcfg.head_dim, tcfg.mrope_section, tcfg.rope_theta)
+        cols = torch.arange(state.valid.shape[1], device=dev)[None, :]
+        newly = (cols >= store_pos[:, None]) & (cols < store_pos[:, None] + kq)
+        new_valid = state.valid | (newly & active_mask[:, None])
+        hidden, new_rows = language.int8_layers(
+            params, tcfg, inputs_embeds, cos, sin,
+            lambda q, li, fresh: decode_attention_int8_multi(
+                q, state.k8, state.ks, state.v8, state.vs, state.valid, store_pos, layer=li, fresh_kv=fresh,
+            ),
+        )
+    with rec.span("decode.store"):
+        store_kv_rows_k_all_layers(state.k8, state.ks, state.v8, state.vs, *new_rows, store_pos, n_rows=n_store_rows)
+        state.valid = new_valid
     return hidden
 
 
 _SUFFIX_K = 32  # per-pass suffix width (the row store's bound)
 
 
-def _suffix_prefill_step(params, cfg: PaDTConfig, state: DecodeState, inputs: torch.Tensor, slen: torch.Tensor) -> DecodeState:
+def _suffix_prefill_step(
+    params, cfg: PaDTConfig, state: DecodeState, inputs: torch.Tensor, slen: torch.Tensor, *, rec: Recorder,
+) -> DecodeState:
     """One K=32 suffix pass over the pool (prefix KV caching), in place.
 
     Slots admitted with a cached shared prefix already hold its KV; this
@@ -255,7 +281,7 @@ def _suffix_prefill_step(params, cfg: PaDTConfig, state: DecodeState, inputs: to
     cap = state.valid.shape[1]
     store_pos = state.write_pos.clamp(max=cap - kq)
     write_pos0 = state.write_pos
-    hid = _decode_spec_slots(params["text"], cfg.text, emb, state, store_pos, active_mask=mask, n_store_rows=slen)
+    hid = _decode_spec_slots(params["text"], cfg.text, emb, state, store_pos, active_mask=mask, n_store_rows=slen, rec=rec)
     # drop the right-pad rows: keep [0, write_pos) and [store_pos, store_pos + slen)
     cols = torch.arange(cap, device=dev)[None, :]
     state.valid &= (cols < (store_pos + slen)[:, None]) | (cols < write_pos0[:, None])
@@ -310,12 +336,17 @@ def decode_chunk_spec(
     draft_k: int,
     oracle_seq: Optional[torch.Tensor] = None,  # benchmark-only: known-correct drafts
     force_accept: bool = False,  # benchmark-only: accept every draft (tokens NOT valid)
+    *,
+    rec: Recorder,
 ) -> DecodeState:
     """Speculative (greedy-only) decode chunk, in place: each macro-step
     drafts draft_k - 1 tokens by prompt lookup, verifies them and the base
     token in one K-token forward, and emits 1..draft_k tokens. Token-identical
     to plain greedy decoding: the model's own argmax decides every emitted
-    token. Stops early when the pool drains."""
+    token. Stops early when the pool drains. Host spans as `decode_chunk`'s,
+    with `decode.logits` twice a step (the draft, then the acceptance) and
+    `decode.emit.readback` inside the second. `oracle_seq` lies on the
+    state's device."""
     eos = cfg.eos_token_id
     b, t_cap = state.tokens.shape
     kq = draft_k
@@ -324,63 +355,68 @@ def decode_chunk_spec(
     idxk = torch.arange(kq, device=dev)[None, :]
     rowsk = torch.arange(b, device=dev)[:, None]
     for _ in range(n_steps):
-        if not bool(state.active.any()):
-            break
-        st = state
-        logits0 = padt_model.extended_logits(params, cfg, st.cur_hidden, st.proto, st.num_merged)[:, 0]
-        t0 = torch.where(st.active, torch.argmax(logits0, dim=-1), cfg.pad_token_id)
-        if oracle_seq is not None:
-            gi = (st.n_gen[:, None] + 1 + idxk[:, : kq - 1]).clamp(0, oracle_seq.shape[0] - 1)
-            draft = oracle_seq.to(dev).long()[gi]
-        else:
-            last1 = torch.gather(st.ctx, 1, (st.ctx_len[:, None] - 1).clamp(0, cap - 1))[:, 0]
-            draft = _bigram_draft(st.ctx, st.ctx_len, last1, t0, kq)
-        inputs = torch.cat([t0[:, None], draft], dim=1)  # (B, K)
+        with rec.span("decode.readback"):
+            if not bool(state.active.any()):
+                break
+        with rec.span("decode.step"):
+            st = state
+            with rec.span("decode.logits"):
+                logits0 = padt_model.extended_logits(params, cfg, st.cur_hidden, st.proto, st.num_merged)[:, 0]
+                t0 = torch.where(st.active, torch.argmax(logits0, dim=-1), cfg.pad_token_id)
+                if oracle_seq is not None:
+                    gi = (st.n_gen[:, None] + 1 + idxk[:, : kq - 1]).clamp(0, oracle_seq.shape[0] - 1)
+                    draft = oracle_seq[gi]
+                else:
+                    last1 = torch.gather(st.ctx, 1, (st.ctx_len[:, None] - 1).clamp(0, cap - 1))[:, 0]
+                    draft = _bigram_draft(st.ctx, st.ctx_len, last1, t0, kq)
+                inputs = torch.cat([t0[:, None], draft], dim=1)  # (B, K)
 
-        emb = padt_model.extended_embed(params, cfg, inputs, st.proto)
-        store_pos = st.write_pos.clamp(max=cap - kq)
-        write_pos0 = st.write_pos
-        hid = _decode_spec_slots(params["text"], cfg.text, emb, st, store_pos)
-        g = torch.argmax(padt_model.extended_logits(params, cfg, hid, st.proto, st.num_merged), dim=-1)
+                emb = padt_model.extended_embed(params, cfg, inputs, st.proto)
+            store_pos = st.write_pos.clamp(max=cap - kq)
+            write_pos0 = st.write_pos
+            hid = _decode_spec_slots(params["text"], cfg.text, emb, st, store_pos, rec=rec)
+            with rec.span("decode.logits"):
+                g = torch.argmax(padt_model.extended_logits(params, cfg, hid, st.proto, st.num_merged), dim=-1)
 
-        # longest accepted draft prefix: draft[:, i] must equal g[:, i]
-        acc = torch.cumprod((draft == g[:, :-1]).long(), dim=1).sum(dim=1)
-        if force_accept:
-            acc = torch.full_like(acc, kq - 1)
-        emitted = 1 + acc
-        # stop at the first EOS among the emitted tokens, then at the budget
-        is_eos = inputs == eos
-        eos_pos = torch.where(is_eos & (idxk < emitted[:, None]), idxk, kq).amin(dim=1)
-        emitted = torch.minimum(emitted, eos_pos + 1)
-        emitted = torch.minimum(emitted, st.budget - st.n_gen)
-        emitted = torch.where(st.active, emitted, 0)
-        hit_eos = (eos_pos < kq) & (emitted == eos_pos + 1) & st.active
+                # longest accepted draft prefix: draft[:, i] must equal g[:, i]
+                acc = torch.cumprod((draft == g[:, :-1]).long(), dim=1).sum(dim=1)
+                if force_accept:
+                    acc = torch.full_like(acc, kq - 1)
+                emitted = 1 + acc
+                # stop at the first EOS among the emitted tokens, then at the budget
+                is_eos = inputs == eos
+                eos_pos = torch.where(is_eos & (idxk < emitted[:, None]), idxk, kq).amin(dim=1)
+                emitted = torch.minimum(emitted, eos_pos + 1)
+                emitted = torch.minimum(emitted, st.budget - st.n_gen)
+                emitted = torch.where(st.active, emitted, 0)
+                hit_eos = (eos_pos < kq) & (emitted == eos_pos + 1) & st.active
 
-        # tokens and the hidden that produced each at n_gen..n_gen+emitted;
-        # only emitted cells are written (a clamped index near the end of the
-        # buffer must not overwrite an emitted one)
-        emit_mask = idxk < emitted[:, None]
-        sel_b, sel_k = emit_mask.nonzero(as_tuple=True)
-        sel_t = st.n_gen[sel_b] + sel_k
-        prod_hid = torch.cat([st.cur_hidden, hid[:, : kq - 1].to(st.cur_hidden.dtype)], dim=1)  # (B, K, D)
-        st.tokens[sel_b, sel_t] = inputs[sel_b, sel_k]
-        st.hidden_out[sel_b, sel_t] = prod_hid[sel_b, sel_k]
-        ctx_idx = (st.ctx_len[:, None] + idxk).clamp(0, cap - 1)
-        st.ctx[rowsk, ctx_idx] = torch.where(emit_mask, inputs, st.ctx[rowsk, ctx_idx])
+                # tokens and the hidden that produced each at n_gen..n_gen+emitted;
+                # only emitted cells are written (a clamped index near the end of the
+                # buffer must not overwrite an emitted one)
+                emit_mask = idxk < emitted[:, None]
+                with rec.span("decode.emit.readback"):  # nonzero reads the count back
+                    sel_b, sel_k = emit_mask.nonzero(as_tuple=True)
+                sel_t = st.n_gen[sel_b] + sel_k
+                prod_hid = torch.cat([st.cur_hidden, hid[:, : kq - 1].to(st.cur_hidden.dtype)], dim=1)  # (B, K, D)
+                st.tokens[sel_b, sel_t] = inputs[sel_b, sel_k]
+                st.hidden_out[sel_b, sel_t] = prod_hid[sel_b, sel_k]
+                ctx_idx = (st.ctx_len[:, None] + idxk).clamp(0, cap - 1)
+                st.ctx[rowsk, ctx_idx] = torch.where(emit_mask, inputs, st.ctx[rowsk, ctx_idx])
 
-        # invalidate rejected rows: positions >= store_pos + emitted
-        cols = torch.arange(cap, device=dev)[None, :]
-        st.valid &= (cols < (store_pos + emitted)[:, None]) | (cols < write_pos0[:, None])
-        # next carried hidden: the one after exactly `emitted` tokens
-        last = (emitted - 1).clamp(0, kq - 1)[:, None, None].expand(-1, 1, hid.shape[-1])
-        st.cur_hidden = torch.where(st.active[:, None, None], torch.gather(hid, 1, last).to(st.cur_hidden.dtype), st.cur_hidden)
+                # invalidate rejected rows: positions >= store_pos + emitted
+                cols = torch.arange(cap, device=dev)[None, :]
+                st.valid &= (cols < (store_pos + emitted)[:, None]) | (cols < write_pos0[:, None])
+                # next carried hidden: the one after exactly `emitted` tokens
+                last = (emitted - 1).clamp(0, kq - 1)[:, None, None].expand(-1, 1, hid.shape[-1])
+                st.cur_hidden = torch.where(st.active[:, None, None], torch.gather(hid, 1, last).to(st.cur_hidden.dtype), st.cur_hidden)
 
-        st.n_gen = st.n_gen + emitted
-        st.ctx_len = st.ctx_len + emitted
-        st.write_pos = st.write_pos + emitted
-        st.text_pos = st.text_pos + emitted
-        st.active = st.active & ~hit_eos & (st.n_gen < st.budget)
-        st.steps += 1
+                st.n_gen = st.n_gen + emitted
+                st.ctx_len = st.ctx_len + emitted
+                st.write_pos = st.write_pos + emitted
+                st.text_pos = st.text_pos + emitted
+                st.active = st.active & ~hit_eos & (st.n_gen < st.budget)
+                st.steps += 1
     return state
 
 
@@ -393,34 +429,46 @@ def decode_chunk(
     temperature: float = 1.0,
     top_k: Optional[int] = None,
     top_p: Optional[float] = None,
+    *,
+    rec: Recorder,
 ) -> DecodeState:
     """Advance every active slot up to `n_steps` tokens, in place; stops
     early when the pool drains (one `active.any()` readback per step).
     Token selection is `padt.sample_token` over each slot's own extended
-    vocabulary (greedy by default, else from `state.generator`)."""
+    vocabulary (greedy by default, else from `state.generator`).
+
+    Host spans into `rec`: `decode.readback` for each `active.any()` wait
+    (one a step, and one more where the pool drained before `n_steps`),
+    and `decode.step` for each step run, with the children `decode.logits`
+    (logits, sampling, token bookkeeping, the new token's embedding),
+    `decode.layers` (the text layers, each quantizing its new K/V rows)
+    and `decode.store` (H6's store of every layer's rows)."""
     eos = cfg.eos_token_id
     b, t_cap = state.tokens.shape
     rows = torch.arange(b, device=state.tokens.device)
     for _ in range(n_steps):
-        if not bool(state.active.any()):
-            break
-        st = state
-        logits = padt_model.extended_logits(params, cfg, st.cur_hidden, st.proto, st.num_merged)[:, 0]
-        tok = padt_model.sample_token(logits, st.generator, do_sample, temperature, top_k, top_p)
-        tok = torch.where(st.active, tok, cfg.pad_token_id)
-        idx = st.n_gen.clamp(0, t_cap - 1)
-        st.tokens[rows, idx] = torch.where(st.active, tok, st.tokens[rows, idx])
-        st.hidden_out[rows, idx] = torch.where(st.active[:, None], st.cur_hidden[:, 0], st.hidden_out[rows, idx])
-        st.n_gen = st.n_gen + st.active.long()
-        active = st.active & (tok != eos) & (st.n_gen < st.budget)
-        # the next forward runs for the whole pool; inactive slots' writes
-        # are masked through valid / write_pos
-        emb = padt_model.extended_embed(params, cfg, tok[:, None], st.proto)
-        st.cur_hidden = _decode_step_slots(params["text"], cfg.text, emb, st).to(st.cur_hidden.dtype)
-        st.write_pos = st.write_pos + st.active.long()
-        st.text_pos = st.text_pos + st.active.long()
-        st.active = active
-        st.steps += 1
+        with rec.span("decode.readback"):
+            if not bool(state.active.any()):
+                break
+        with rec.span("decode.step"):
+            st = state
+            with rec.span("decode.logits"):
+                logits = padt_model.extended_logits(params, cfg, st.cur_hidden, st.proto, st.num_merged)[:, 0]
+                tok = padt_model.sample_token(logits, st.generator, do_sample, temperature, top_k, top_p)
+                tok = torch.where(st.active, tok, cfg.pad_token_id)
+                idx = st.n_gen.clamp(0, t_cap - 1)
+                st.tokens[rows, idx] = torch.where(st.active, tok, st.tokens[rows, idx])
+                st.hidden_out[rows, idx] = torch.where(st.active[:, None], st.cur_hidden[:, 0], st.hidden_out[rows, idx])
+                st.n_gen = st.n_gen + st.active.long()
+                active = st.active & (tok != eos) & (st.n_gen < st.budget)
+                # the next forward runs for the whole pool; inactive slots' writes
+                # are masked through valid / write_pos
+                emb = padt_model.extended_embed(params, cfg, tok[:, None], st.proto)
+            st.cur_hidden = _decode_step_slots(params["text"], cfg.text, emb, st, rec=rec).to(st.cur_hidden.dtype)
+            st.write_pos = st.write_pos + st.active.long()
+            st.text_pos = st.text_pos + st.active.long()
+            st.active = active
+            st.steps += 1
     return state
 
 
@@ -468,7 +516,12 @@ class Completion:
 
 @dataclass
 class ServeStats:
-    wall_s: float = 0.0
+    """One run's device seconds and counts. The prompt and patch counters
+    are counted on the host from the request batches, over the rows of the
+    prefill buckets, padding rows included (an admission of prefix-cached
+    requests prefills only its uncached prefixes, and its suffix passes
+    count as `suffix_passes`)."""
+
     prefill_s: float = 0.0  # device time of prefill + insert (+ suffix passes)
     decode_s: float = 0.0  # device time of the decode chunks
     generated_tokens: int = 0
@@ -476,13 +529,23 @@ class ServeStats:
     suffix_passes: int = 0  # pool-wide K=32 suffix passes (prefix-cached admissions)
     completions: int = 0
     slot_step_utilization: float = 0.0  # generated / (steps * slots)
-    slot_steps: int = 0
     prefix_hits: int = 0
     prefix_misses: int = 0
     prefill_tokens_saved: int = 0
+    admissions: int = 0  # `_admit` / `_admit_prefix` calls
+    prompt_tokens: int = 0  # real prompt tokens prefilled (attention-mask ones)
+    prompt_slots: int = 0  # prefill bucket rows x prompt bucket
+    patches: int = 0  # real patches through the tower
+    patch_slots: int = 0  # prefill bucket rows x patch bucket
 
-    def tokens_per_sec(self) -> float:
-        return self.generated_tokens / self.wall_s if self.wall_s > 0 else 0.0
+    def count_prefill(self, batches: List[Dict[str, Any]], rows: int) -> None:
+        """Add a prefill bucket of `rows` rows whose real requests carry the
+        host-side `batches` (one-row leaves)."""
+        self.prompt_tokens += sum(int(np.asarray(b["attention_mask"]).sum()) for b in batches)
+        self.prompt_slots += rows * np.shape(batches[0]["attention_mask"])[-1]
+        if "num_patches" in batches[0]:
+            self.patches += sum(int(np.asarray(b["num_patches"]).sum()) for b in batches)
+            self.patch_slots += rows * np.shape(batches[0]["seg_full"])[-1]
 
 
 def _mark(device: torch.device):
@@ -505,8 +568,8 @@ def _host_leaf(v) -> torch.Tensor:
     return v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
 
 
-def _stack_rows(name: str, rows: List[Any], device) -> torch.Tensor:
-    """One-row request leaves -> one batch tensor on the device (position_ids
+def _stack_rows(name: str, rows: List[Any]) -> torch.Tensor:
+    """One-row request leaves -> one batch tensor on the host (position_ids
     carries the 3 M-RoPE streams in dim 0 and the batch in dim 1)."""
     ts = [_host_leaf(x) for x in rows]
     shapes = {tuple(t.shape) for t in ts}
@@ -515,13 +578,13 @@ def _stack_rows(name: str, rows: List[Any], device) -> torch.Tensor:
             f"request leaf {name!r} has mixed shapes {shapes}: requests in one admission "
             "bucket must share prompt/patch buckets (run() groups them by shape)"
         )
-    return torch.cat(ts, dim=1 if name == "position_ids" else 0).to(device)
+    return torch.cat(ts, dim=1 if name == "position_ids" else 0)
 
 
 class RunCtx:
     """Per-run host bookkeeping for one engine (see ServeEngine.start_run)."""
 
-    def __init__(self):
+    def __init__(self, rec: Recorder):
         self.pending: Dict[Any, deque] = {}
         self.n_pending = 0
         self.free: List[int] = []
@@ -530,7 +593,7 @@ class RunCtx:
         self.results: List[Completion] = []
         self.stats = ServeStats()
         self.prev_n_gen = None
-        self.t_start = 0.0
+        self.rec = rec  # the run's host spans
         self.spans: List[Tuple[str, Any, Any]] = []  # (stat, start mark, end mark) not yet read
         # observed early-EOS completion lengths, for the chunk sizer's p90
         self.obs_lens: deque = deque(maxlen=256)
@@ -590,7 +653,6 @@ class ServeEngine:
         if speculative and do_sample:
             raise ValueError("speculative decoding is greedy-only (exactness)")
         self.speculative = int(speculative)
-        self.oracle_draft_seq = oracle_draft_seq
         self.force_accept = force_accept
         self.budget_blind = budget_blind
         self.sampling = (do_sample, temperature, top_k, top_p)
@@ -600,6 +662,7 @@ class ServeEngine:
         self.capacity = -(-cap // 128) * 128
         embed = params["text"]["embed"]
         self.device = embed.device
+        self.oracle_draft_seq = None if oracle_draft_seq is None else self._tensor(oracle_draft_seq)
         self.state = init_state(
             cfg, n_slots, self.capacity, max_new_tokens, embed.dtype, self.device,
             patch_bucket=patch_bucket, seed=seed,
@@ -610,15 +673,16 @@ class ServeEngine:
         self.prefix_cache_entries = prefix_cache_entries
         self._prefix_cache: Dict[Any, Tuple[PrefillPack, Any, int]] = {}  # insertion-ordered LRU
 
-    def _prefill(self, batch, deltas):
-        return prefill(self.params, self.cfg, batch, deltas, self.capacity, return_artifacts=self.keep_artifacts)
+    def _prefill(self, batch, deltas, rec: Recorder):
+        return prefill(self.params, self.cfg, batch, deltas, self.capacity, return_artifacts=self.keep_artifacts, rec=rec)
 
-    def _chunk(self, n: int):
+    def _chunk(self, n: int, rec: Recorder):
         if self.speculative:
-            osq = None if self.oracle_draft_seq is None else torch.as_tensor(np.asarray(self.oracle_draft_seq))
-            decode_chunk_spec(self.params, self.cfg, self.state, n, self.speculative, osq, self.force_accept)
+            decode_chunk_spec(
+                self.params, self.cfg, self.state, n, self.speculative, self.oracle_draft_seq, self.force_accept, rec=rec,
+            )
         else:
-            decode_chunk(self.params, self.cfg, self.state, n, *self.sampling)
+            decode_chunk(self.params, self.cfg, self.state, n, *self.sampling, rec=rec)
 
     @staticmethod
     def _shape_key(req: Request):
@@ -633,29 +697,38 @@ class ServeEngine:
         return tuple(sorted((k, tuple(v.shape)) for k, v in req.batch.items()))
 
     def _make_bucket(self, reqs: List[Request], r: Optional[int] = None):
+        """An admission bucket on the host: the requests' leaves stacked and
+        padded to r rows with copies of the first, rope deltas, budgets (0 on
+        the padding rows)."""
         r = r or self.prefill_bucket
         pad = r - len(reqs)
-        stack = {k: _stack_rows(k, [q.batch[k] for q in reqs] + [reqs[0].batch[k]] * pad, self.device) for k in reqs[0].batch}
-        deltas = torch.tensor([q.rope_delta for q in reqs] + [0] * pad, dtype=torch.int64, device=self.device)
+        stack = {k: _stack_rows(k, [q.batch[k] for q in reqs] + [reqs[0].batch[k]] * pad) for k in reqs[0].batch}
+        deltas = torch.tensor([q.rope_delta for q in reqs] + [0] * pad, dtype=torch.int64)
         budgets = np.array([min(q.max_new_tokens, self.max_new_tokens) for q in reqs] + [0] * pad, np.int64)
         return stack, deltas, budgets
 
-    def start_run(self, requests: List[Request], schedule: str = "fifo") -> RunCtx:
+    def _upload(self, rec: Recorder, stack: Dict[str, torch.Tensor], deltas: torch.Tensor):
+        """A bucket's copies to the device, synchronous from pageable host
+        memory: the first waits for the work queued before it."""
+        with rec.span("admit.copy.readback"):
+            return {k: v.to(self.device) for k, v in stack.items()}, deltas.to(self.device)
+
+    def start_run(self, requests: List[Request], schedule: str = "fifo", rec: Optional[Recorder] = None) -> RunCtx:
         """Order and group the requests and reset the per-run bookkeeping; `run`
         drives the returned context with `_refill` / `_dispatch_chunk` /
-        `_sync_harvest` and ends with `_finish_run`."""
+        `_sync_harvest` and ends with `_finish_run`. Host spans go to `rec`
+        where the caller reads them, else to a recorder of this run alone."""
         if schedule == "longest_first":
             requests = sorted(requests, key=lambda q: -q.max_new_tokens)
         elif schedule != "fifo":
             raise ValueError(f"unknown schedule {schedule!r}")
-        ctx = RunCtx()
+        ctx = RunCtx(Recorder() if rec is None else rec)
         for q in requests:
             ctx.pending.setdefault(self._shape_key(q), deque()).append(q)
         ctx.n_pending = len(requests)
         ctx.free = list(range(self.n_slots))
         ctx.prev_n_gen = np.zeros(self.n_slots, np.int64)
         self.state.steps = 0
-        ctx.t_start = time.perf_counter()
         return ctx
 
     def _sync_flags(self):
@@ -671,18 +744,24 @@ class ServeEngine:
         take = [grp.popleft() for _ in range(min(r, len(grp)))]
         ctx.n_pending -= len(take)
         slots = [ctx.free.pop() for _ in range(r)]
-        stack, deltas, budgets = self._make_bucket(take, r)
-        t0 = _mark(self.device)
-        out = self._prefill(stack, deltas)
-        pack, art = out if self.keep_artifacts else (out, None)
-        insert(self.state, pack, self._tensor(slots), self._tensor(budgets))
-        ctx.spans.append(("prefill_s", t0, _mark(self.device)))
-        ctx.prev_n_gen[slots] = 0
-        for i, q in enumerate(take):
-            ctx.occupant[slots[i]] = q
-            if art is not None:
-                ctx.slot_art[slots[i]] = type(art)(*(x[i : i + 1] for x in art))
-        ctx.free.extend(slots[len(take):])  # padding slots go straight back
+        rec = ctx.rec
+        with rec.span("serve.admit"):
+            with rec.span("admit.stack"):
+                stack, deltas, budgets = self._make_bucket(take, r)
+            stack, deltas = self._upload(rec, stack, deltas)
+            t0 = _mark(self.device)
+            out = self._prefill(stack, deltas, rec)
+            pack, art = out if self.keep_artifacts else (out, None)
+            self._insert(rec, pack, slots, budgets)
+            ctx.spans.append(("prefill_s", t0, _mark(self.device)))
+            ctx.stats.admissions += 1
+            ctx.stats.count_prefill([q.batch for q in take], r)
+            ctx.prev_n_gen[slots] = 0
+            for i, q in enumerate(take):
+                ctx.occupant[slots[i]] = q
+                if art is not None:
+                    ctx.slot_art[slots[i]] = type(art)(*(x[i : i + 1] for x in art))
+            ctx.free.extend(slots[len(take):])  # padding slots go straight back
 
     def _admit_prefix(self, ctx: RunCtx, grp: deque, r: int):
         """Admit r prefix-cached requests: prefill only the uncached prefixes
@@ -702,67 +781,84 @@ class ServeEngine:
                     f"(need {need}); raise prompt_len"
                 )
         slots = [ctx.free.pop() for _ in range(r)]
-        t0 = _mark(self.device)
-        # 1) prefill the uncached prefixes, batched and padded to an engine bucket
-        uniq, seen = [], set()
-        for q in take:
-            if q.prefix.key not in self._prefix_cache and q.prefix.key not in seen:
-                uniq.append(q.prefix)
-                seen.add(q.prefix.key)
-        if uniq:
-            ru = self.prefill_bucket_small if len(uniq) <= self.prefill_bucket_small else self.prefill_bucket
-            pad = ru - len(uniq)
-            stack = {k: _stack_rows(k, [p.batch[k] for p in uniq] + [uniq[0].batch[k]] * pad, self.device) for k in uniq[0].batch}
-            deltas = torch.tensor([p.rope_delta for p in uniq] + [0] * pad, dtype=torch.int64, device=self.device)
-            out = self._prefill(stack, deltas)
-            pack, art = out if self.keep_artifacts else (out, None)
-            for i, p in enumerate(uniq):
-                plen = int(np.sum(np.asarray(p.batch["attention_mask"])))
-                arow = None if art is None else type(art)(*(x[i : i + 1] for x in art))
-                self._prefix_cache[p.key] = (_pack_slice(pack, i), arow, plen)
-        # per-request entries, popped and reinserted for LRU recency; the
-        # local list keeps this admission's entries alive across the trim
-        entries = []
-        for q in take:
-            e = self._prefix_cache.pop(q.prefix.key)
-            self._prefix_cache[q.prefix.key] = e
-            entries.append(e)
-        while len(self._prefix_cache) > self.prefix_cache_entries:
-            self._prefix_cache.pop(next(iter(self._prefix_cache)))
-        ctx.stats.prefix_misses += len(uniq)
-        ctx.stats.prefix_hits += len(take) - len(uniq)
-        paying = {p.key for p in uniq}
-        for q, e in zip(take, entries):
-            if q.prefix.key in paying:
-                paying.discard(q.prefix.key)
-            else:
-                ctx.stats.prefill_tokens_saved += e[2]
-        # 2) splice the prefix KV into the slots
-        pack = _pack_concat([e[0] for e in entries] + [entries[0][0]] * (r - len(take)))
-        budgets = [min(q.max_new_tokens, self.max_new_tokens) for q in take] + [0] * (r - len(take))
-        insert(self.state, pack, self._tensor(slots), self._tensor(budgets))
-        # 3) suffix passes over the pool (other slots' rows stay untouched)
-        sfx = np.full((self.n_slots, self.suffix_bucket), self.cfg.pad_token_id, np.int64)
-        slen = np.zeros(self.n_slots, np.int64)
-        for i, q in enumerate(take):
-            ids = np.asarray(q.suffix_ids, np.int64).reshape(-1)
-            sfx[slots[i], : len(ids)] = ids
-            slen[slots[i]] = len(ids)
-        for c0 in range(0, self.suffix_bucket, _SUFFIX_K):
-            if not np.any(slen - c0 > 0):
-                break
-            _suffix_prefill_step(
-                self.params, self.cfg, self.state,
-                self._tensor(sfx[:, c0 : c0 + _SUFFIX_K]), self._tensor(np.clip(slen - c0, 0, _SUFFIX_K)),
-            )
-            ctx.stats.suffix_passes += 1
-        ctx.spans.append(("prefill_s", t0, _mark(self.device)))
-        ctx.prev_n_gen[slots] = 0
-        for i, q in enumerate(take):
-            ctx.occupant[slots[i]] = q
-            if entries[i][1] is not None:
-                ctx.slot_art[slots[i]] = entries[i][1]
-        ctx.free.extend(slots[len(take):])
+        rec = ctx.rec
+        with rec.span("serve.admit"):
+            t0 = _mark(self.device)
+            # 1) prefill the uncached prefixes, batched and padded to an engine bucket
+            uniq, seen = [], set()
+            for q in take:
+                if q.prefix.key not in self._prefix_cache and q.prefix.key not in seen:
+                    uniq.append(q.prefix)
+                    seen.add(q.prefix.key)
+            if uniq:
+                with rec.span("admit.stack"):
+                    ru = self.prefill_bucket_small if len(uniq) <= self.prefill_bucket_small else self.prefill_bucket
+                    pad = ru - len(uniq)
+                    stack = {k: _stack_rows(k, [p.batch[k] for p in uniq] + [uniq[0].batch[k]] * pad) for k in uniq[0].batch}
+                    deltas = torch.tensor([p.rope_delta for p in uniq] + [0] * pad, dtype=torch.int64)
+                stack, deltas = self._upload(rec, stack, deltas)
+                out = self._prefill(stack, deltas, rec)
+                pack, art = out if self.keep_artifacts else (out, None)
+                for i, p in enumerate(uniq):
+                    plen = int(np.sum(np.asarray(p.batch["attention_mask"])))
+                    arow = None if art is None else type(art)(*(x[i : i + 1] for x in art))
+                    self._prefix_cache[p.key] = (_pack_slice(pack, i), arow, plen)
+                ctx.stats.count_prefill([p.batch for p in uniq], ru)
+            # per-request entries, popped and reinserted for LRU recency; the
+            # local list keeps this admission's entries alive across the trim
+            entries = []
+            for q in take:
+                e = self._prefix_cache.pop(q.prefix.key)
+                self._prefix_cache[q.prefix.key] = e
+                entries.append(e)
+            while len(self._prefix_cache) > self.prefix_cache_entries:
+                self._prefix_cache.pop(next(iter(self._prefix_cache)))
+            ctx.stats.prefix_misses += len(uniq)
+            ctx.stats.prefix_hits += len(take) - len(uniq)
+            paying = {p.key for p in uniq}
+            for q, e in zip(take, entries):
+                if q.prefix.key in paying:
+                    paying.discard(q.prefix.key)
+                else:
+                    ctx.stats.prefill_tokens_saved += e[2]
+            # 2) splice the prefix KV into the slots
+            pack = _pack_concat([e[0] for e in entries] + [entries[0][0]] * (r - len(take)))
+            budgets = [min(q.max_new_tokens, self.max_new_tokens) for q in take] + [0] * (r - len(take))
+            self._insert(rec, pack, slots, budgets)
+            # 3) suffix passes over the pool (other slots' rows stay untouched)
+            with rec.span("admit.suffix"):
+                sfx = np.full((self.n_slots, self.suffix_bucket), self.cfg.pad_token_id, np.int64)
+                slen = np.zeros(self.n_slots, np.int64)
+                for i, q in enumerate(take):
+                    ids = np.asarray(q.suffix_ids, np.int64).reshape(-1)
+                    sfx[slots[i], : len(ids)] = ids
+                    slen[slots[i]] = len(ids)
+                with rec.span("admit.suffix.readback"):  # synchronous copies
+                    sfx_t, slen_t = self._tensor(sfx), self._tensor(slen)
+                for c0 in range(0, self.suffix_bucket, _SUFFIX_K):
+                    if not np.any(slen - c0 > 0):
+                        break
+                    _suffix_prefill_step(
+                        self.params, self.cfg, self.state,
+                        sfx_t[:, c0 : c0 + _SUFFIX_K], (slen_t - c0).clamp(0, _SUFFIX_K), rec=rec,
+                    )
+                    ctx.stats.suffix_passes += 1
+            ctx.spans.append(("prefill_s", t0, _mark(self.device)))
+            ctx.stats.admissions += 1
+            ctx.prev_n_gen[slots] = 0
+            for i, q in enumerate(take):
+                ctx.occupant[slots[i]] = q
+                if entries[i][1] is not None:
+                    ctx.slot_art[slots[i]] = entries[i][1]
+            ctx.free.extend(slots[len(take):])
+
+    def _insert(self, rec: Recorder, pack: PrefillPack, slots: List[int], budgets):
+        """Splice a pack into `slots`. The slot and budget copies to the
+        device are synchronous: they wait for the prefill queued before them."""
+        with rec.span("admit.insert.readback"):
+            slots_t, budgets_t = self._tensor(slots), self._tensor(budgets)
+        with rec.span("admit.insert"):
+            insert(self.state, pack, slots_t, budgets_t)
 
     def _refill(self, ctx: RunCtx):
         """Admit pending requests: full buckets first, then straggler (small)
@@ -791,73 +887,82 @@ class ServeEngine:
         >= 8 uncensored lengths were seen, their p90), the minimum over slots
         clipped to [chunk_steps, max_chunk_steps]. `budget_blind` removes the
         budget bound from the sizer only."""
-        est_default = int(np.percentile(list(ctx.obs_lens), 90)) if len(ctx.obs_lens) >= 8 else None
-        remaining = []
-        for s, q in ctx.occupant.items():
-            n_gen = int(ctx.prev_n_gen[s])
-            rem_budget = min(q.max_new_tokens, self.max_new_tokens) - n_gen
-            est = q.expected_new_tokens if q.expected_new_tokens is not None else est_default
-            if self.budget_blind:
-                rem = (est - n_gen) if est is not None else self.max_chunk_steps
-            else:
-                rem = min(est - n_gen, rem_budget) if est is not None else rem_budget
-            remaining.append(max(rem, 1))
-        chunk_n = int(np.clip(min(remaining), self.chunk_steps, self.max_chunk_steps))
-        t0 = _mark(self.device)
-        self._chunk(chunk_n)
-        ctx.spans.append(("decode_s", t0, _mark(self.device)))
+        with ctx.rec.span("serve.decode_chunk"):
+            est_default = int(np.percentile(list(ctx.obs_lens), 90)) if len(ctx.obs_lens) >= 8 else None
+            remaining = []
+            for s, q in ctx.occupant.items():
+                n_gen = int(ctx.prev_n_gen[s])
+                rem_budget = min(q.max_new_tokens, self.max_new_tokens) - n_gen
+                est = q.expected_new_tokens if q.expected_new_tokens is not None else est_default
+                if self.budget_blind:
+                    rem = (est - n_gen) if est is not None else self.max_chunk_steps
+                else:
+                    rem = min(est - n_gen, rem_budget) if est is not None else rem_budget
+                remaining.append(max(rem, 1))
+            chunk_n = int(np.clip(min(remaining), self.chunk_steps, self.max_chunk_steps))
+            t0 = _mark(self.device)
+            self._chunk(chunk_n, ctx.rec)
+            ctx.spans.append(("decode_s", t0, _mark(self.device)))
 
     def _sync_harvest(self, ctx: RunCtx):
         """Read the chunk's flags (the sync point), add the device spans that
         completed, and harvest the finished slots."""
-        active, n_gen, steps_done = self._sync_flags()
-        for stat, a, b in ctx.spans:
-            setattr(ctx.stats, stat, getattr(ctx.stats, stat) + _span_s(a, b))
-        ctx.spans.clear()
-        ctx.stats.decode_steps = steps_done
-        ctx.prev_n_gen = n_gen.copy()
+        rec = ctx.rec
+        with rec.span("serve.flag_readback"):
+            active, n_gen, steps_done = self._sync_flags()
         done = [s for s in ctx.occupant if not active[s]]
-        if not done:
-            return
-        # gathers copy the rows, so a refilled slot cannot clobber them
-        idx = self._tensor(done)
-        tok_rows = self.state.tokens[idx]
-        hid_rows = self.state.hidden_out[idx] if self.collect_hidden else None
-        for jd, s in enumerate(done):
-            q = ctx.occupant.pop(s)
-            ng = int(n_gen[s])
-            # EOS strictly before the budget: an uncensored length observation
-            if ng < min(q.max_new_tokens, self.max_new_tokens):
-                ctx.obs_lens.append(ng)
-            ctx.results.append(Completion(
-                uid=q.uid, tokens=tok_rows[jd], n_gen=ng,
-                hidden=None if hid_rows is None else hid_rows[jd],
-                artifacts=ctx.slot_art.pop(s, None),
-            ))
-            ctx.stats.generated_tokens += ng
-            ctx.stats.completions += 1
-            ctx.free.append(s)
+        with rec.span("serve.harvest"):
+            for stat, a, b in ctx.spans:
+                setattr(ctx.stats, stat, getattr(ctx.stats, stat) + _span_s(a, b))
+            ctx.spans.clear()
+            ctx.stats.decode_steps = steps_done
+            ctx.prev_n_gen = n_gen.copy()
+            if not done:
+                return
+            # gathers copy the rows, so a refilled slot cannot clobber them
+            with rec.span("harvest.readback"):  # a synchronous copy
+                idx = self._tensor(done)
+            tok_rows = self.state.tokens[idx]
+            hid_rows = self.state.hidden_out[idx] if self.collect_hidden else None
+            for jd, s in enumerate(done):
+                q = ctx.occupant.pop(s)
+                ng = int(n_gen[s])
+                # EOS strictly before the budget: an uncensored length observation
+                if ng < min(q.max_new_tokens, self.max_new_tokens):
+                    ctx.obs_lens.append(ng)
+                ctx.results.append(Completion(
+                    uid=q.uid, tokens=tok_rows[jd], n_gen=ng,
+                    hidden=None if hid_rows is None else hid_rows[jd],
+                    artifacts=ctx.slot_art.pop(s, None),
+                ))
+                ctx.stats.generated_tokens += ng
+                ctx.stats.completions += 1
+                ctx.free.append(s)
 
     def _finish_run(self, ctx: RunCtx) -> Tuple[List[Completion], ServeStats]:
-        # the wall clock stops before the completions' tokens come to the host
-        ctx.stats.wall_s = time.perf_counter() - ctx.t_start
         if ctx.results:
-            all_tok = torch.stack([c.tokens for c in ctx.results]).cpu().numpy()
+            with ctx.rec.span("tokens.readback"):
+                all_tok = torch.stack([c.tokens for c in ctx.results]).cpu().numpy()
             for i, c in enumerate(ctx.results):
                 c.tokens = all_tok[i, : c.n_gen].copy()
         if ctx.stats.decode_steps:
             ctx.stats.slot_step_utilization = ctx.stats.generated_tokens / (ctx.stats.decode_steps * self.n_slots)
         return ctx.results, ctx.stats
 
-    def run(self, requests: List[Request], schedule: str = "fifo") -> Tuple[List[Completion], ServeStats]:
+    def run(
+        self, requests: List[Request], schedule: str = "fifo", rec: Optional[Recorder] = None,
+    ) -> Tuple[List[Completion], ServeStats]:
         """Process `requests` to completion. schedule="longest_first" admits
         in descending max_new_tokens; per-request outputs are the same under
-        any order (greedy decoding is prefix-stable, slots independent)."""
-        ctx = self.start_run(requests, schedule)
-        while ctx.n_pending or ctx.occupant:
-            self._refill(ctx)
-            if not ctx.occupant:
-                break
-            self._dispatch_chunk(ctx)
-            self._sync_harvest(ctx)
-        return self._finish_run(ctx)
+        any order (greedy decoding is prefix-stable, slots independent).
+        Host spans go to `rec` as `start_run`'s, the whole run as
+        `serve.run`."""
+        ctx = self.start_run(requests, schedule, rec)
+        with ctx.rec.span("serve.run"):
+            while ctx.n_pending or ctx.occupant:
+                self._refill(ctx)
+                if not ctx.occupant:
+                    break
+                self._dispatch_chunk(ctx)
+                self._sync_harvest(ctx)
+            return self._finish_run(ctx)

@@ -4,8 +4,13 @@
 
 Fills every slot of an 8-slot `ServeEngine` pool (int8 KV, packed weights: bf16 for
 PaDT-3B, int8 for PaDT-7B, random from a seed; 46x46-patch images, prompt
-640), runs one 16-step decode chunk unprofiled for the wall time per step,
-then one under `torch.profiler` and prints, per step: the device's busy time (the
+640), runs eight 16-step decode chunks unprofiled, every other one inside
+`utils.profiling.recording()`, and prints per step the wall time and the
+host's split from the program's spans (`[host]`): `decode.step` less the
+waits inside it (launching the step) by child (`decode.logits`,
+`decode.layers`, `decode.store`), and the `decode.*readback` spans (waiting
+on the device), and what recording the span list costs the host. Then it runs one chunk under `torch.profiler` and
+prints, per step: the device's busy time (the
 kernels' device times summed: one stream, so they do not overlap), its idle
 share of the profiled wall, the kernels by device time, the share of
 H7 (`int8_matmul`), of the attention kernels and of H1 (`rope_qk`), and
@@ -22,6 +27,7 @@ into a directory that .gitignore lists) beside this one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import subprocess
 import sys
@@ -72,7 +78,7 @@ def _engine(model: str, dev):
     ]
     prompts = [f'Please locate "the object number {i}" in the image.' for i in range(SLOTS)]
     reqs, _ = InferenceEngine(params, cfg, proc).build_stream_requests(prompts, images, prompt_bucket=PROMPT_LEN)
-    budget = 2 * STEPS + 4
+    budget = 10 * STEPS
     for q in reqs:
         q.max_new_tokens = budget
     eng = ServeEngine(params, cfg, n_slots=SLOTS, max_new_tokens=budget, prompt_len=PROMPT_LEN,
@@ -97,28 +103,53 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = _card()
     eng, reqs = _engine(args.model, dev)
+    from padt_tpu_torch.utils import profiling
+
     ctx = eng.start_run(reqs)
     eng._refill(ctx)  # prefill every slot
-    eng._chunk(2)  # warm
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng._chunk(STEPS)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+    eng._chunk(2, profiling.Recorder())  # warm
+    tag = f"{args.model} {SLOTS} slots ({where})"
+
+    walls, recs = {False: [], True: []}, {False: [], True: []}
+    for on in (False, True) * 4:  # recording the span list off and on, in turns
+        rec = profiling.Recorder()
+        with profiling.recording() if on else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng._chunk(STEPS, rec)
+            torch.cuda.synchronize()
+        walls[on].append((time.perf_counter() - t0) * 1e3 / STEPS)
+        recs[on].append(rec)
+    wall_ms = float(np.mean(walls[False]))
+    ms = lambda on, name: float(np.mean([r.sums.get(name, 0) for r in recs[on]])) / 1e6 / STEPS
+    waits = {n for r in recs[False] for n in r.sums if n.startswith("decode.") and n.endswith("readback")}
+    readback = sum(ms(False, n) for n in waits)
+    step = ms(False, "decode.step")
+    launch = step - sum(ms(False, n) for n in waits if n != "decode.readback")  # less the waits inside a step
+    kids = {n: ms(False, "decode." + n) for n in ("logits", "layers", "store")}
+    host = lambda on: ms(on, "decode.step") + ms(on, "decode.readback")
+    print(f"[host] {tag}: wall {wall_ms:.3f} ms/step; launch {launch:.3f} ms/step (decode.step {step:.3f} = "
+          + ", ".join(f"{n} {v:.3f}" for n, v in kids.items())
+          + f", other {step - sum(kids.values()):.3f}); readback (decode.*readback) {readback:.3f} "
+          f"ms/step; recording the span list: host {host(True):.3f} against {host(False):.3f} ms/step, "
+          f"wall {np.mean(walls[True]):.3f} against {wall_ms:.3f} ms/step ({card})")
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    prec = profiling.Recorder()  # under the profiler its spans are annotations on the device's timeline too
     with torch.profiler.profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eng._chunk(STEPS)
+        eng._chunk(STEPS, prec)
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3 / STEPS
-    if int(eng.state.n_gen.min()) < 2 + 2 * STEPS:
+    if int(eng.state.n_gen.min()) < 2 + 9 * STEPS:
         raise AssertionError("a slot stopped before the profiled chunk ended")
 
     by_name = defaultdict(float)
     stack_ms, stack_calls = 0.0, 0
     for evt in prof.key_averages():
+        if evt.key in prec.counts:  # a program span, not a kernel
+            continue
         if evt.device_time_total > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             by_name[evt.key] += evt.device_time_total / 1e3 / STEPS  # ms per step
         elif evt.key == "aten::stack":  # a host op: the device time of the kernels it launched
@@ -132,7 +163,6 @@ def main() -> int:
     attn = ours("decode_kernel", "verify_kernel")  # H4 / H5 (csrc/int8_kv.cu)
     rope = ours("rope_qk_kernel")  # H1 (csrc/rope_qk.cu): one launch per layer of a step
     store = ours("store_rows")  # H6 (csrc/int8_kv.cu): one launch per step
-    tag = f"{args.model} {SLOTS} slots ({where})"
     print(f"[profile] {tag}: wall {wall_ms:.3f} ms/step unprofiled, {prof_ms:.3f} ms/step profiled; "
           f"device busy {busy:.3f} ms/step, idle {1 - busy / prof_ms:.3f} of the profiled wall; "
           f"H7 int8_matmul {h7:.3f} ms/step ({h7 / busy:.3f} of busy); H4 attention {attn:.3f} ms/step "

@@ -13,6 +13,7 @@ from collections import deque
 import numpy as np
 
 import jax
+import pytest
 import torch
 
 from test_torch_common import close, port_image, seeded_image, tiny_params, tiny_processor, torch_cfg
@@ -25,6 +26,7 @@ from padt_tpu_torch.convert.from_jax import params_from_numpy
 from padt_tpu_torch.eval.harness import InferenceEngine
 from padt_tpu_torch.models import padt as TP
 from padt_tpu_torch.serve import Request, ServeEngine, SharedPrefix
+from padt_tpu_torch.utils import profiling
 
 HID_TOL = 1e-3
 PATCHES = 128  # patch bucket of every batch below (8x12-patch images)
@@ -125,6 +127,80 @@ def test_engine_bucket_padding_and_idle_slots():
     for c in tres:
         assert c.n_gen <= 5 and len(c.tokens) == c.n_gen
     _same_completions(jres, tres, hidden=False)
+
+
+def _chunk_log(eng):
+    """(steps asked, steps run) of every decode chunk the engine runs."""
+    log, orig = [], eng._chunk
+
+    def chunk(n, rec=None):
+        s0 = eng.state.steps
+        orig(n, rec)
+        log.append((n, eng.state.steps - s0))
+
+    eng._chunk = chunk
+    return log
+
+
+@pytest.mark.parametrize("speculative", [0, 3])
+def test_engine_spans_and_counters(speculative):
+    """With the span list recorded: one `decode.step` per decode step, one
+    `decode.readback` per step plus one for each chunk whose pool drained
+    before its end, every span inside its parent, each synchronous copy to
+    the device in a `.readback` span, the admission counters equal to
+    counts made from the requests (a budget-0 dummy row included), and the
+    completions the JAX engine's. Without tracing the
+    same run keeps the same sums and counts and no list."""
+    cfg, jp, tp = _params()
+    proc = tiny_processor(cfg)
+    batches = _batches(cfg, proc, ["detect the cat", "find a dog", "segment it"], 31)
+    kw = dict(n_slots=4, max_new_tokens=8, prompt_len=128, prefill_bucket=2, prefill_bucket_small=2, chunk_steps=2,
+              patch_bucket=PATCHES, speculative=speculative)
+    jeng, teng = _engines(cfg, jp, tp, **kw)
+    jreqs, treqs = _requests(batches, [6, 3, 5])
+    jres, _ = jeng.run(jreqs)
+    log = _chunk_log(teng)
+    rec = profiling.Recorder()
+    with profiling.recording():
+        tres, st = teng.run(treqs, rec=rec)
+    _same_completions(jres, tres, hidden=False)
+
+    n = rec.counts
+    assert n["decode.step"] == st.decode_steps > 0
+    assert any(done < asked for asked, done in log)  # a chunk that ended early
+    assert n["decode.readback"] == sum(done + (done < asked) for asked, done in log)
+    assert n["serve.decode_chunk"] == n["serve.flag_readback"] == n["serve.harvest"] == len(log)
+    assert n["decode.layers"] == n["decode.store"] == st.decode_steps
+    assert n["decode.logits"] == st.decode_steps * (2 if speculative else 1)
+    assert n.get("decode.emit.readback", 0) == (st.decode_steps if speculative else 0)
+    assert n["serve.run"] == n["tokens.readback"] == 1
+    assert n["serve.admit"] == n["admit.stack"] == n["admit.vision"] == n["admit.prefill"] == n["admit.insert"] == 2
+    assert n["admit.copy.readback"] == n["admit.insert.readback"] == 2
+    assert 1 <= n["harvest.readback"] <= 3  # a harvest of at least one of the 3 requests
+    spans = rec.spans
+    assert spans[0][0] == "serve.run" and spans[0][3] == -1
+    want_parent = {"serve": "serve.run", "tokens": "serve.run", "admit": "serve.admit", "decode": "decode.step",
+                   "harvest": "serve.harvest"}
+    want_parent.update({"decode.step": "serve.decode_chunk", "decode.readback": "serve.decode_chunk",
+                        "decode.emit.readback": "decode.logits"})
+    for i, (name, t0, t1, parent) in enumerate(spans[1:], 1):
+        assert 0 <= parent < i and spans[parent][1] <= t0 <= t1 <= spans[parent][2], (name, parent)
+        assert spans[parent][0] == want_parent.get(name, want_parent[name.split(".")[0]]), name
+    for name, total in rec.sums.items():
+        assert total == sum(t1 - t0 for s, t0, t1, _ in spans if s == name)
+
+    # the counters, by hand from the requests: buckets of 2 rows, the second with one dummy
+    real = [b.data for b in batches]
+    assert st.admissions == 2
+    assert st.prompt_tokens == sum(int(d["attention_mask"].sum()) for d in real) and st.prompt_slots == 4 * 128
+    assert st.patches == sum(int(d["num_patches"].sum()) for d in real) and st.patch_slots == 4 * PATCHES
+    assert st.patches < st.patch_slots and st.prompt_tokens < st.prompt_slots
+
+    off = profiling.Recorder()
+    tres2, st2 = teng.run(treqs, rec=off)
+    assert off.spans is None and off.counts == rec.counts and st2 == st.__class__(**{**vars(st), **{
+        k: getattr(st2, k) for k in ("prefill_s", "decode_s")}})
+    _same_completions(jres, tres2, hidden=False)
 
 
 def test_engine_speculative_matches_plain():
@@ -319,3 +395,16 @@ def test_run_batch_and_run_stream_on_quantized_init():
     assert teng.params["text"]["layers"] is params["text"]["layers"]
     stats = teng.pop_stream_stats()
     assert stats["generated_tokens"] >= 5 and stats["decode_steps"] > 0
+    # the host split: span sums under the stats' keys, the counters, no span list without tracing
+    assert stats["run_s"] == stats["host_s"]["serve.run"] > 0 and stats["host_n"]["serve.run"] == 1
+    assert stats["tail_s"] == stats["host_s"]["stream.tail"] and stats["build_s"] == stats["host_s"]["stream.build"]
+    assert stats["host_n"]["decode.step"] == stats["decode_steps"] and "spans" not in stats
+    assert stats["admissions"] == 3  # buckets 2, 2, 1
+    assert stats["prompt_slots"] == 5 * 128 and stats["patch_slots"] == 5 * PATCHES
+    with profiling.recording():
+        teng.run_stream(prompts[:2], images[:2], n_slots=2, prefill_bucket=2, chunk_steps=3, patch_bucket=PATCHES,
+                        prompt_bucket=128)
+    stats = teng.pop_stream_stats()
+    names = [s[0] for s in stats["spans"]]
+    assert names[:2] == ["stream.build", "serve.run"] and names[-1] == "stream.tail"
+    assert teng.pop_stream_stats() is None

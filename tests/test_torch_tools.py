@@ -1,6 +1,6 @@
 """PyTorch port's command-line tools (`padt_tpu_torch/tools/{convert_checkpoint,
-demo,infer_eval,sft_train,process_datasets}.py`) and `utils/profiling`, run
-in-process on the CPU (`--device cpu`).
+demo,infer_eval,sft_train,process_datasets}.py`), run in-process on the CPU
+(`--device cpu`).
 
 The pipeline rehearsal is `scripts/real_weights_pipeline.sh`'s, on
 `tests/test_pipeline_rehearsal.py`'s staged fixture (a tiny HF checkpoint
@@ -33,7 +33,6 @@ from test_datasets import _mk_coco
 from test_pipeline_rehearsal import ROOT, staged  # noqa: F401  (the staged fixture)
 from test_torch_datasets import mk_refer
 from padt_tpu_torch.tools import convert_checkpoint, demo, infer_eval, process_datasets, sft_train
-from padt_tpu_torch.utils import profiling
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -230,28 +229,3 @@ def test_process_datasets_tool_matches_jax(tmp_path):
         t_out, j_out = str(tmp_path / f"t{i}.jsonl"), str(tmp_path / f"j{i}.jsonl")
         assert process_datasets.main(argv + ["--output", t_out]) == jax_fn(j_out)
         assert open(t_out).read() == open(j_out).read() and os.path.getsize(t_out) > 0
-
-
-def test_phase_timer_and_decode_stats(tmp_path):
-    timer = profiling.PhaseTimer()
-    for _ in range(3):
-        with timer.phase("matmul", result_holder={"out": torch.ones(4) @ torch.ones(4)}):
-            torch.ones(64, 64) @ torch.ones(64, 64)
-    with timer.phase("empty"):
-        pass
-    s = timer.summary()
-    assert set(s) == {"matmul", "empty"} and len(timer.times["matmul"]) == 3 and s["matmul"] >= 0.0
-    # a linear cost model: 0.5 s of prefill, 0.01 s per decode step, batch 4
-    from padt_tpu.utils import profiling as jax_profiling
-
-    st = profiling.decode_stats(lambda n: 0.5 + 0.01 * n, 16, 80, 4)
-    assert st == jax_profiling.decode_stats(lambda n: 0.5 + 0.01 * n, 16, 80, 4)
-    assert st["decode_step_s"] == pytest.approx(0.01) and st["prefill_s"] == pytest.approx(0.5)
-    assert st["decode_tokens_per_s"] == pytest.approx(400.0)
-    assert profiling.decode_stats(lambda n: 1.0, 8, 8, 2)["decode_tokens_per_s"] == float("inf")
-    profiling.sync([torch.zeros(2), {"a": (torch.ones(1),)}])  # CPU tensors: nothing to wait for
-    with profiling.trace(str(tmp_path / "trace")):
-        with profiling.annotate("region"):
-            torch.ones(8) * 2
-    (path,) = list((tmp_path / "trace").iterdir())
-    assert "region" in path.read_text()
