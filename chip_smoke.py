@@ -68,7 +68,12 @@ one process per source, into build/padt_tpu_torch/), then:
      counters reset just before and read just after; checks the outputs and
      the launch floors (H5's split by kq: 36 per speculative verify pass at
      kq = 4, 36 per suffix pass at kq = 32), and prints wall, device prefill
-     / decode seconds, decode tok/s and slot utilization;
+     / decode seconds, decode tok/s and slot utilization. A plain decode
+     step after an engine's capture replays its CUDA graph, so from there
+     on the serve counts (here and in steps 7, 8 and 10) are the captured
+     step's, added once a replay (`serve.engine.DecodeGraph`);
+     `tests/test_torch_decode_graph.py` holds the kernels a profiler trace
+     of a replay names against an eager step's;
   7. [qi8]: the same weights with PADT_DECODE_QI8's int8 x int8 decode
      scores: int8 `generate` of 4 queries (first without QI8) and
      `run_stream` of 16 requests over 8 slots (step 6's first run is the one
@@ -956,9 +961,9 @@ PROMPTS = [
 def _counters():
     """The kernel wrappers' modules, each with launch_counts and
     reset_launch_counts."""
-    from padt_tpu_torch.ops import cuda_attention, cuda_flash_bwd, cuda_kv, cuda_quant
+    from padt_tpu_torch.ops import kernel_modules
 
-    return [cuda_attention, cuda_flash_bwd, cuda_kv, cuda_quant]
+    return kernel_modules()
 
 
 def _processor(cfg):
@@ -1138,7 +1143,8 @@ def phase_tiny_reference(dev):
             S._suffix_prefill_step(params, cfg, st, T(sfx_ids), T(sfx_len), rec=rec)
             h_sfx = st.cur_hidden.float().cpu()
             h_step = S._decode_step_slots(params["text"], cfg.text, P.extended_embed(params, cfg, T(step_ids), st.proto), st, rec=rec)
-            st.write_pos, st.text_pos = st.write_pos + 1, st.text_pos + 1  # the next position, as decode_chunk moves it
+            st.write_pos.add_(1)  # the next position, as decode_chunk moves it (in place)
+            st.text_pos.add_(1)
             before = KC._QI8_DEFAULT
             KC._QI8_DEFAULT = True  # a second decode step with PADT_DECODE_QI8's int8 x int8 scores
             try:

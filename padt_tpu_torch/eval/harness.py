@@ -324,7 +324,7 @@ class InferenceEngine:
 
     _STREAM_COUNTS = (
         "generated_tokens", "decode_steps", "suffix_passes", "admissions",
-        "prompt_tokens", "prompt_slots", "patches", "patch_slots",
+        "prompt_tokens", "prompt_slots", "patches", "patch_slots", "graph_steps", "graph_captures",
     )
 
     def _record_stream_stats(self, sstats):

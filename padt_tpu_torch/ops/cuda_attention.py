@@ -50,6 +50,7 @@ BIG_LSE = 1e30  # the LSE of a query row with no visible key: exp(s - lse) is 0
 launch_counts = {"rope_qk": 0, "segment_flash_fwd": 0, "window_slot_attn": 0}
 # H1's launches split by shape: (rows, q heads, k heads) -> launches
 rope_launches_by_shape: dict = {}
+TALLIES = (launch_counts, rope_launches_by_shape)  # every dict a launch adds to
 
 
 def reset_launch_counts() -> None:

@@ -39,6 +39,7 @@ from ._build import check, load_library
 from .cuda_attention import HEAD_DIMS, _on_cpu, _require, _same_device, _stream, _vec_ok, heads_first, visible
 
 launch_counts = {"flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+TALLIES = (launch_counts,)  # every dict a launch adds to
 
 
 def reset_launch_counts() -> None:

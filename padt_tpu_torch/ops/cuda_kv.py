@@ -55,6 +55,7 @@ launch_counts = {"int8_decode_attn": 0, "int8_decode_attn_qi8": 0, "int8_verify_
 
 # H5's launches by kq: speculative verify (kq = draft_k) and suffix passes (kq = 32) apart
 verify_launches_by_kq: dict = {}
+TALLIES = (launch_counts, verify_launches_by_kq)  # every dict a launch adds to
 
 
 def reset_launch_counts() -> None:

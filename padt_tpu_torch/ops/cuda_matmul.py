@@ -26,6 +26,7 @@ from ._build import check, load_library
 from .cuda_attention import SMEM_LIMIT, SMS, _no_graph_cut, _require, _same_device, _stream
 
 launch_counts = {"stream_matmul": 0}
+TALLIES = (launch_counts,)  # every dict a launch adds to
 
 # csrc/gemm_sm90.cuh, the GEMM that H10 and H7 share
 DECODE_M = 128  # M up to this takes swap-AB (out^T = W^T x^T)

@@ -24,6 +24,7 @@ from .cuda_matmul import GemmPlan, gemm_plan
 
 launch_counts = {"int8_matmul": 0}
 launches_by_m = {}  # {M: launches}: the same launches split by the rows of x (decode or prefill)
+TALLIES = (launch_counts, launches_by_m)  # every dict a launch adds to
 
 
 def reset_launch_counts() -> None:

@@ -6,8 +6,11 @@ the rest of the pool keeps decoding.
 The device-side functions keep the JAX package's names and semantics, with
 two differences of form: the decode state is a mutable dataclass updated IN
 PLACE (the cache rows through the H6 store kernel, the other leaves by
-index assignment), and a decode chunk is a Python loop that reads
-`active.any()` once per step, where JAX ran one `while_loop` program.
+index assignment, `copy_` and `add_`: each leaf keeps its tensor, and so
+its address, for the engine's life), and a decode chunk is a Python loop
+that reads `active.any()` once per step, where JAX ran one `while_loop`
+program. On the card the plain steps of a chunk replay one CUDA graph of
+the step (`DecodeGraph`), captured once per engine.
 
 On the card every decode step runs H4 (`int8_decode_attn`) in every layer
 and one H6 store; every suffix pass and speculative verify runs H5
@@ -21,8 +24,9 @@ synchronous): the JAX engine's `prefill_s` measured dispatch only and its
 device prefill landed in `decode_s`. Host time goes to a
 `utils.profiling.Recorder` in spans named after the code they cover
 (`serve.run`, `serve.admit` > `admit.{stack,copy.readback,vision,prefill,
-insert.readback,insert,suffix}`, `serve.decode_chunk` > `decode.readback`
-and `decode.step` > `decode.{logits,layers,store}`, `serve.flag_readback`,
+insert.readback,insert,suffix}`, `serve.decode_chunk` > `decode.readback`,
+`decode.capture` and `decode.step` > `decode.{logits,layers,store}` (eager
+steps only), `serve.flag_readback`,
 `serve.harvest` > `harvest.readback`, `tokens.readback`). A span whose name
 ends in `.readback` holds a call that blocks the host until the device has
 run the work queued before it: a readback, or a synchronous copy to the
@@ -44,6 +48,7 @@ import torch
 from ..config import PaDTConfig
 from ..models import language
 from ..models import padt as padt_model
+from ..ops import launch_tallies
 from ..ops.kv_cache import (
     decode_attention_int8,
     decode_attention_int8_multi,
@@ -256,7 +261,7 @@ def _decode_spec_slots(
         )
     with rec.span("decode.store"):
         store_kv_rows_k_all_layers(state.k8, state.ks, state.v8, state.vs, *new_rows, store_pos, n_rows=n_store_rows)
-        state.valid = new_valid
+        state.valid.copy_(new_valid)
     return hidden
 
 
@@ -280,22 +285,20 @@ def _suffix_prefill_step(
     emb = padt_model.extended_embed(params, cfg, inputs, state.proto)
     cap = state.valid.shape[1]
     store_pos = state.write_pos.clamp(max=cap - kq)
-    write_pos0 = state.write_pos
     hid = _decode_spec_slots(params["text"], cfg.text, emb, state, store_pos, active_mask=mask, n_store_rows=slen, rec=rec)
     # drop the right-pad rows: keep [0, write_pos) and [store_pos, store_pos + slen)
     cols = torch.arange(cap, device=dev)[None, :]
-    state.valid &= (cols < (store_pos + slen)[:, None]) | (cols < write_pos0[:, None])
+    state.valid &= (cols < (store_pos + slen)[:, None]) | (cols < state.write_pos[:, None])
     last = (slen - 1).clamp(0, kq - 1)[:, None, None].expand(-1, 1, hid.shape[-1])
-    state.cur_hidden = torch.where(mask[:, None, None], torch.gather(hid, 1, last).to(state.cur_hidden.dtype), state.cur_hidden)
+    state.cur_hidden.copy_(torch.where(mask[:, None, None], torch.gather(hid, 1, last).to(state.cur_hidden.dtype), state.cur_hidden))
     # append the real suffix tokens to the draft context
     idxk = torch.arange(kq, device=dev)[None, :]
     rowsk = torch.arange(inputs.shape[0], device=dev)[:, None]
     ctx_idx = (state.ctx_len[:, None] + idxk).clamp(0, cap - 1)
     emit = idxk < slen[:, None]
     state.ctx[rowsk, ctx_idx] = torch.where(emit, inputs.long(), state.ctx[rowsk, ctx_idx])
-    state.ctx_len = state.ctx_len + slen
-    state.write_pos = state.write_pos + slen
-    state.text_pos = state.text_pos + slen
+    for t in (state.ctx_len, state.write_pos, state.text_pos):
+        t.add_(slen)
     return state
 
 
@@ -373,7 +376,6 @@ def decode_chunk_spec(
 
                 emb = padt_model.extended_embed(params, cfg, inputs, st.proto)
             store_pos = st.write_pos.clamp(max=cap - kq)
-            write_pos0 = st.write_pos
             hid = _decode_spec_slots(params["text"], cfg.text, emb, st, store_pos, rec=rec)
             with rec.span("decode.logits"):
                 g = torch.argmax(padt_model.extended_logits(params, cfg, hid, st.proto, st.num_merged), dim=-1)
@@ -404,20 +406,104 @@ def decode_chunk_spec(
                 ctx_idx = (st.ctx_len[:, None] + idxk).clamp(0, cap - 1)
                 st.ctx[rowsk, ctx_idx] = torch.where(emit_mask, inputs, st.ctx[rowsk, ctx_idx])
 
-                # invalidate rejected rows: positions >= store_pos + emitted
+                # invalidate rejected rows: positions >= store_pos + emitted (write_pos moves below)
                 cols = torch.arange(cap, device=dev)[None, :]
-                st.valid &= (cols < (store_pos + emitted)[:, None]) | (cols < write_pos0[:, None])
+                st.valid &= (cols < (store_pos + emitted)[:, None]) | (cols < st.write_pos[:, None])
                 # next carried hidden: the one after exactly `emitted` tokens
                 last = (emitted - 1).clamp(0, kq - 1)[:, None, None].expand(-1, 1, hid.shape[-1])
-                st.cur_hidden = torch.where(st.active[:, None, None], torch.gather(hid, 1, last).to(st.cur_hidden.dtype), st.cur_hidden)
+                st.cur_hidden.copy_(torch.where(st.active[:, None, None], torch.gather(hid, 1, last).to(st.cur_hidden.dtype), st.cur_hidden))
 
-                st.n_gen = st.n_gen + emitted
-                st.ctx_len = st.ctx_len + emitted
-                st.write_pos = st.write_pos + emitted
-                st.text_pos = st.text_pos + emitted
-                st.active = st.active & ~hit_eos & (st.n_gen < st.budget)
+                for t in (st.n_gen, st.ctx_len, st.write_pos, st.text_pos):
+                    t.add_(emitted)
+                st.active &= ~hit_eos & (st.n_gen < st.budget)
                 st.steps += 1
     return state
+
+
+def _plain_step(params, cfg: PaDTConfig, state: DecodeState, sampling: Tuple, *, rec: Recorder) -> None:
+    """One plain decode step over the pool, in place: logits, token
+    selection, the token / hidden / `n_gen` bookkeeping, the new token's
+    embedding, the text layers, H6's store, then `write_pos`, `text_pos`
+    and `active`. It reads and writes only the state's tensors, the weights
+    and tensors it makes itself, so a CUDA graph of it replays on the state
+    as that then stands."""
+    eos = cfg.eos_token_id
+    b, t_cap = state.tokens.shape
+    st = state
+    with rec.span("decode.logits"):
+        rows = torch.arange(b, device=st.tokens.device)
+        logits = padt_model.extended_logits(params, cfg, st.cur_hidden, st.proto, st.num_merged)[:, 0]
+        tok = padt_model.sample_token(logits, st.generator, *sampling)
+        tok = torch.where(st.active, tok, cfg.pad_token_id)
+        idx = st.n_gen.clamp(0, t_cap - 1)
+        st.tokens[rows, idx] = torch.where(st.active, tok, st.tokens[rows, idx])
+        st.hidden_out[rows, idx] = torch.where(st.active[:, None], st.cur_hidden[:, 0], st.hidden_out[rows, idx])
+        st.n_gen.add_(st.active.long())
+        active = st.active & (tok != eos) & (st.n_gen < st.budget)
+        # the next forward runs for the whole pool; inactive slots' writes
+        # are masked through valid / write_pos
+        emb = padt_model.extended_embed(params, cfg, tok[:, None], st.proto)
+    st.cur_hidden.copy_(_decode_step_slots(params["text"], cfg.text, emb, st, rec=rec))
+    moved = st.active.long()
+    st.write_pos.add_(moved)
+    st.text_pos.add_(moved)
+    st.active.copy_(active)
+
+
+class DecodeGraph:
+    """A plain decode step captured once as a CUDA graph and replayed for
+    every later step of one engine's state. The state's tensors keep their
+    addresses for the engine's life (every path updates them in place), and
+    its slots, capacity, prototype table, sampling settings and weights are
+    fixed, so one graph serves every chunk.
+
+    It applies on the card only, and under sampling only where this PyTorch
+    can register the state's generator with a graph; a step it does not
+    apply to runs eagerly. Until the capture, steps run eagerly: the first
+    on the card builds the kernels, sets their attributes and settles
+    cuBLAS's workspace, and the next step of its run captures. Capture runs
+    nothing, so the step captured is then replayed.
+    The kernel wrappers' launch tallies (`ops.launch_tallies`) count a
+    replay's launches as those of the step captured; the capture's own calls
+    are taken back out. Module settings that a step reads are those of the
+    capture for the graph's life (`kv_cache._QI8_DEFAULT`, which the
+    environment sets at import).
+
+    `steps` (steps replayed) and `captures` count since the engine's run
+    started (`ServeStats.graph_steps` / `graph_captures`)."""
+
+    def __init__(self):
+        self.graph = None  # torch.cuda.CUDAGraph of one step, once captured
+        self.launches: List[Tuple[dict, Any, int]] = []  # (tally, key, launches a replay adds)
+        self.steps = 0
+        self.captures = 0
+
+    @staticmethod
+    def applies(state: DecodeState, do_sample: bool) -> bool:
+        return state.tokens.is_cuda and (not do_sample or hasattr(torch.cuda.CUDAGraph, "register_generator_state"))
+
+    def capture(self, step, generator: Optional[torch.Generator]) -> None:
+        """Capture `step(rec)` (nothing runs) on a side stream into a graph
+        with its own memory pool."""
+        g = torch.cuda.CUDAGraph()
+        if generator is not None:
+            g.register_generator_state(generator)
+        tallies = launch_tallies()
+        before = [dict(t) for t in tallies]
+        with torch.cuda.graph(g, capture_error_mode="thread_local"):  # other threads may use the card meanwhile
+            step(Recorder())
+        self.launches = [(t, k, n - b.get(k, 0)) for t, b in zip(tallies, before) for k, n in t.items() if n != b.get(k, 0)]
+        for t, b in zip(tallies, before):
+            t.clear()
+            t.update(b)
+        self.graph = g
+        self.captures += 1
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for t, k, n in self.launches:
+            t[k] = t.get(k, 0) + n
+        self.steps += 1
 
 
 def decode_chunk(
@@ -431,44 +517,39 @@ def decode_chunk(
     top_p: Optional[float] = None,
     *,
     rec: Recorder,
+    graph: Optional[DecodeGraph] = None,
 ) -> DecodeState:
     """Advance every active slot up to `n_steps` tokens, in place; stops
     early when the pool drains (one `active.any()` readback per step).
     Token selection is `padt.sample_token` over each slot's own extended
-    vocabulary (greedy by default, else from `state.generator`).
+    vocabulary (greedy by default, else from `state.generator`). With a
+    `graph` that applies (`DecodeGraph`), the steps after the first eager
+    one on the card replay one captured step.
 
     Host spans into `rec`: `decode.readback` for each `active.any()` wait
     (one a step, and one more where the pool drained before `n_steps`),
-    and `decode.step` for each step run, with the children `decode.logits`
-    (logits, sampling, token bookkeeping, the new token's embedding),
-    `decode.layers` (the text layers, each quantizing its new K/V rows)
-    and `decode.store` (H6's store of every layer's rows)."""
-    eos = cfg.eos_token_id
-    b, t_cap = state.tokens.shape
-    rows = torch.arange(b, device=state.tokens.device)
+    `decode.capture` for a capture, and `decode.step` for each step run: a
+    replay, or an eager step with the children `decode.logits` (logits,
+    sampling, token bookkeeping, the new token's embedding), `decode.layers`
+    (the text layers, each quantizing its new K/V rows) and `decode.store`
+    (H6's store of every layer's rows)."""
+    sampling = (do_sample, temperature, top_k, top_p)
+    if graph is not None and not graph.applies(state, do_sample):
+        graph = None
+    step = lambda r: _plain_step(params, cfg, state, sampling, rec=r)
     for _ in range(n_steps):
         with rec.span("decode.readback"):
             if not bool(state.active.any()):
                 break
+        if graph is not None and graph.graph is None and state.steps:  # a step of this run ran eagerly
+            with rec.span("decode.capture"):
+                graph.capture(step, state.generator if do_sample else None)
         with rec.span("decode.step"):
-            st = state
-            with rec.span("decode.logits"):
-                logits = padt_model.extended_logits(params, cfg, st.cur_hidden, st.proto, st.num_merged)[:, 0]
-                tok = padt_model.sample_token(logits, st.generator, do_sample, temperature, top_k, top_p)
-                tok = torch.where(st.active, tok, cfg.pad_token_id)
-                idx = st.n_gen.clamp(0, t_cap - 1)
-                st.tokens[rows, idx] = torch.where(st.active, tok, st.tokens[rows, idx])
-                st.hidden_out[rows, idx] = torch.where(st.active[:, None], st.cur_hidden[:, 0], st.hidden_out[rows, idx])
-                st.n_gen = st.n_gen + st.active.long()
-                active = st.active & (tok != eos) & (st.n_gen < st.budget)
-                # the next forward runs for the whole pool; inactive slots' writes
-                # are masked through valid / write_pos
-                emb = padt_model.extended_embed(params, cfg, tok[:, None], st.proto)
-            st.cur_hidden = _decode_step_slots(params["text"], cfg.text, emb, st, rec=rec).to(st.cur_hidden.dtype)
-            st.write_pos = st.write_pos + st.active.long()
-            st.text_pos = st.text_pos + st.active.long()
-            st.active = active
-            st.steps += 1
+            if graph is not None and graph.graph is not None:
+                graph.replay()
+            else:
+                step(rec)
+        state.steps += 1
     return state
 
 
@@ -529,6 +610,8 @@ class ServeStats:
     suffix_passes: int = 0  # pool-wide K=32 suffix passes (prefix-cached admissions)
     completions: int = 0
     slot_step_utilization: float = 0.0  # generated / (steps * slots)
+    graph_steps: int = 0  # decode steps run by replaying the engine's CUDA graph
+    graph_captures: int = 0  # captures of that graph (one per engine on the card)
     prefix_hits: int = 0
     prefix_misses: int = 0
     prefill_tokens_saved: int = 0
@@ -607,7 +690,9 @@ class ServeEngine:
       are queued (buckets padded with budget-0 dummies), with smaller
       straggler buckets when fewer remain;
     - decode advances in chunks sized by the budget- and expectation-aware
-      sizer; each chunk ends in one (B,) active / n_gen flag readback.
+      sizer; each chunk ends in one (B,) active / n_gen flag readback;
+    - on the card a plain (not speculative) decode step replays the
+      engine's `DecodeGraph` from the engine's second step on.
     """
 
     def __init__(
@@ -667,6 +752,7 @@ class ServeEngine:
             cfg, n_slots, self.capacity, max_new_tokens, embed.dtype, self.device,
             patch_bucket=patch_bucket, seed=seed,
         )
+        self._graph = DecodeGraph()
         if suffix_bucket % _SUFFIX_K:
             raise ValueError(f"suffix_bucket must be a multiple of {_SUFFIX_K}")
         self.suffix_bucket = suffix_bucket
@@ -682,7 +768,7 @@ class ServeEngine:
                 self.params, self.cfg, self.state, n, self.speculative, self.oracle_draft_seq, self.force_accept, rec=rec,
             )
         else:
-            decode_chunk(self.params, self.cfg, self.state, n, *self.sampling, rec=rec)
+            decode_chunk(self.params, self.cfg, self.state, n, *self.sampling, rec=rec, graph=self._graph)
 
     @staticmethod
     def _shape_key(req: Request):
@@ -728,7 +814,7 @@ class ServeEngine:
         ctx.n_pending = len(requests)
         ctx.free = list(range(self.n_slots))
         ctx.prev_n_gen = np.zeros(self.n_slots, np.int64)
-        self.state.steps = 0
+        self.state.steps = self._graph.steps = self._graph.captures = 0
         return ctx
 
     def _sync_flags(self):
@@ -916,6 +1002,7 @@ class ServeEngine:
                 setattr(ctx.stats, stat, getattr(ctx.stats, stat) + _span_s(a, b))
             ctx.spans.clear()
             ctx.stats.decode_steps = steps_done
+            ctx.stats.graph_steps, ctx.stats.graph_captures = self._graph.steps, self._graph.captures
             ctx.prev_n_gen = n_gen.copy()
             if not done:
                 return

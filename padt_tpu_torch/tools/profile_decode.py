@@ -2,9 +2,9 @@
 
     python3 padt_tpu_torch/tools/profile_decode.py [--model 3b|7b] [--root DIR]
 
-Fills every slot of an 8-slot `ServeEngine` pool (int8 KV, packed weights: bf16 for
-PaDT-3B, int8 for PaDT-7B, random from a seed; 46x46-patch images, prompt
-640), runs eight 16-step decode chunks unprofiled, every other one inside
+Fills every slot of a 32-slot `ServeEngine` pool, the benchmark's (int8 KV,
+packed weights: bf16 for PaDT-3B, int8 for PaDT-7B, random from a seed;
+46x46-patch images, prompt 640), runs eight 16-step decode chunks unprofiled, every other one inside
 `utils.profiling.recording()`, and prints per step the wall time and the
 host's split from the program's spans (`[host]`): `decode.step` less the
 waits inside it (launching the step) by child (`decode.logits`,
@@ -39,7 +39,7 @@ import numpy as np
 PROMPT_LEN = 640
 GRID = (1, 46, 46)
 PATCHES = 2304
-SLOTS = 8
+SLOTS = 32  # the pool of the benchmark's refcoco_stream cells
 STEPS = 16  # decode steps per chunk
 TOP = 12  # kernels listed
 

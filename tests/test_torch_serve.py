@@ -8,6 +8,7 @@ with an int8 KV cache; an int8 value may differ by one quantum where the
 two frameworks' float32 sums round a product to either side of a rounding
 boundary, and that moves the hidden states by far less than this."""
 
+import dataclasses
 from collections import deque
 
 import numpy as np
@@ -26,6 +27,7 @@ from padt_tpu_torch.convert.from_jax import params_from_numpy
 from padt_tpu_torch.eval.harness import InferenceEngine
 from padt_tpu_torch.models import padt as TP
 from padt_tpu_torch.serve import Request, ServeEngine, SharedPrefix
+from padt_tpu_torch.serve import engine as S
 from padt_tpu_torch.utils import profiling
 
 HID_TOL = 1e-3
@@ -319,6 +321,56 @@ def test_suffix_pass_never_touches_other_slots_kv():
     np.testing.assert_array_equal(t[0].tokens, tsolo.tokens)
     for uid in (0, 1):
         np.testing.assert_array_equal(t[uid].tokens, np.asarray(j[uid].tokens))
+
+
+def _state_ptrs(state):
+    return {f.name: getattr(state, f.name).data_ptr() for f in dataclasses.fields(state)
+            if isinstance(getattr(state, f.name), torch.Tensor)}
+
+
+@pytest.mark.parametrize("speculative", [0, 3])
+def test_decode_state_keeps_its_tensors(monkeypatch, speculative):
+    """A CUDA graph of a decode step replays fixed addresses, so every path
+    writes the decode state in place: each `DecodeState` tensor keeps its
+    `data_ptr()` through every `insert`, every decode chunk (plain chunks
+    that drain the pool mid-chunk, or speculative ones) and every suffix pass
+    of a prefix admission, over a run of full-prompt and prefix-cached
+    requests. On the CPU no step is graphed."""
+    cfg, jp, tp = _params()
+    proc = tiny_processor(cfg)
+    tcfg = torch_cfg(cfg)
+    full = _batches(cfg, proc, ["detect the cat", "find a dog", "locate the car"], 3)
+    imgs, pbs = _prefix_setup(cfg, proc, (5, 6), 96)
+    kw = dict(n_slots=3, max_new_tokens=12, prompt_len=128, prefill_bucket=2, prefill_bucket_small=1, chunk_steps=4,
+              patch_bucket=PATCHES, speculative=speculative)
+    eng = ServeEngine(tp, tcfg, **kw)
+    want = _state_ptrs(eng.state)
+    seen = {"insert": 0, "chunk": 0, "suffix": 0, "drained": 0}
+
+    def held(kind):
+        assert _state_ptrs(eng.state) == want, kind
+        seen[kind] += 1
+
+    for name, kind in (("insert", "insert"), ("_suffix_prefill_step", "suffix")):
+        orig = getattr(S, name)
+        monkeypatch.setattr(S, name, lambda *a, _o=orig, _k=kind, **k: (_o(*a, **k), held(_k))[0])
+    chunk = eng._chunk
+
+    def checked_chunk(n, rec):
+        s0 = eng.state.steps
+        chunk(n, rec)
+        seen["drained"] += eng.state.steps - s0 < n  # the pool drained mid-chunk
+        held("chunk")
+
+    eng._chunk = checked_chunk
+    _, treqs = _requests(full, [5, 9, 3])
+    pre = [SharedPrefix(key=j, batch=pbs[j].data, rope_delta=int(pbs[j].rope_deltas[0])) for j in range(2)]
+    treqs += [Request(prefix=pre[j % 2], suffix_ids=np.asarray(proc.build_suffix_ids(p), np.int32), max_new_tokens=b, uid=10 + j)
+              for j, (p, b) in enumerate(zip(["what is here", "segment it", "find a car"], [4, 7, 2]))]
+    res, st = eng.run(treqs)
+    assert len(res) == 6 and seen["insert"] >= 3 and seen["suffix"] >= 1 and seen["chunk"] >= 3 and seen["drained"]
+    assert _state_ptrs(eng.state) == want
+    assert st.decode_steps > 0 and st.graph_steps == st.graph_captures == 0
 
 
 def test_run_stream_matches_jax_and_run_batch():
