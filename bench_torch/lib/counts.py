@@ -16,12 +16,15 @@ from __future__ import annotations
 
 from typing import Dict, Sequence, Tuple
 
+from . import layout
+
 BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
 
 def text_layer_weights(model: Dict) -> Dict[str, Tuple[int, int]]:
-    """(in, out) of each product of one text layer."""
+    """(in, out) of each product of one text layer of Qwen2.5-VL's dense
+    stack (`layouts/qwen25vl.py`)."""
     d, ff, hd = model["hidden_size"], model["intermediate_size"], model["head_dim"]
     qd, kvd = model["num_attention_heads"] * hd, model["num_key_value_heads"] * hd
     return {"qkv": (d, qd + 2 * kvd), "o": (qd, d), "gateup": (d, 2 * ff), "down": (ff, d)}
@@ -68,24 +71,15 @@ def head_width(model: Dict, n_merged: int) -> int:
 
 def query_flops(model: Dict, grid: Sequence[int], prompt_tokens: int, generated: int) -> float:
     """One served query: the tower over its real patches, the prototype
-    projection, the prefill over its real prompt tokens (causal), the
-    logits of each generated token, and a decode forward for every
-    generated token after the first (each attends over the prompt and the
-    tokens before it)."""
-    hd = model["head_dim"]
-    qd = model["num_attention_heads"] * hd
-    nl = model["num_hidden_layers"]
+    projection, the text layers' work (the configuration's layout's
+    `text_flops`: prefill and decode), and the logits of each generated
+    token over the vocabulary and the image's VRT rows."""
     d = model["hidden_size"]
     n_merged = int(grid[0]) * int(grid[1]) * int(grid[2]) // model["vision_config"]["spatial_merge_size"] ** 2
-    layer = text_layer_params(model)
-    p = prompt_tokens
     proto = 2.0 * n_merged * 2 * d * model["prototype_proj_rank"]
-    prefill = 2.0 * layer * nl * p + 4.0 * qd * nl * p * (p + 1) / 2
-    steps = max(generated - 1, 0)
-    ctx = steps * p + steps * (steps + 1) / 2  # keys each decode token attends over, summed
-    decode = 2.0 * layer * nl * steps + 4.0 * qd * nl * ctx
+    text = layout.text_layout(model).text_flops(model, prompt_tokens, generated)
     logits = 2.0 * d * head_width(model, n_merged) * generated
-    return vision_flops(grid, model) + proto + prefill + decode + logits
+    return vision_flops(grid, model) + proto + text + logits
 
 
 def int8_product_work(model: Dict, rows: float, forwards: int) -> Tuple[float, float]:

@@ -2,10 +2,12 @@
 
 The tree has the keys, shapes and dtypes of the program's parameter tree
 (its checkpoint layout: stacked `(layers, in, out)` text and tower weights
-applied as `x @ w`; the serving form of the text layers, fused `qkv_w` and
-`gateup_w`, in bfloat16 or as int8 values with float32 scales per output
-column). The values are the benchmark's own: the program receives the tree
-as a checkpoint, and the reference reads the same tensors.
+applied as `x @ w`). The values are the benchmark's own: the program
+receives the tree as a checkpoint, and the reference reads the same
+tensors. This file spells out what every PaDT configuration shares: the
+tower, the PaDT decoder and the prototype projection. The text stack's
+subtree is its layout's: `layouts/<layout>.py`, named by the
+configuration's `layout` key.
 
 Leaves are views into one buffer per dtype, filled by a few large calls of
 a `torch.Generator` on the device: matrices and biases N(0, std), norm
@@ -20,6 +22,7 @@ embeddings as they do at the published widths).
 
 from __future__ import annotations
 
+import importlib
 import math
 from typing import Dict, List, Tuple
 
@@ -58,24 +61,23 @@ def _decoder(dc: Dict, llm_hidden: int) -> Dict:
     }
 
 
+def text_layout(model: Dict):
+    """The module of `layouts/` that the configuration's `layout` key names
+    (`qwen25vl` where it names none): its text stack's `text_spec` and
+    `text_flops`."""
+    name = model.get("layout", "qwen25vl")
+    try:
+        return importlib.import_module(f"bench_torch.layouts.{name}")
+    except ModuleNotFoundError as e:
+        if e.name != f"bench_torch.layouts.{name}":
+            raise
+        raise SystemExit(f"unknown layout {name!r}: there is no bench_torch/layouts/{name}.py") from None
+
+
 def spec(model: Dict) -> Dict:
     """The tree's leaves as (shape, kind); kind is w, b, one, zero, q8 or s8."""
     vc, dc = model["vision_config"], model["decoder_config"]
-    d, ff, nl = model["hidden_size"], model["intermediate_size"], model["num_hidden_layers"]
-    hd = model["head_dim"]
-    qd, kvd = model["num_attention_heads"] * hd, model["num_key_value_heads"] * hd
-    v = model["vocab_size"]
-    int8 = model["text_layer_weights"] == "int8"
-    layers = {"input_ln_w": ((nl, d), "one"), "post_ln_w": ((nl, d), "one"), "qkv_b": ((nl, qd + 2 * kvd), "b")}
-    for name, (din, dout) in {"qkv_w": (d, qd + 2 * kvd), "o_w": (qd, d), "gateup_w": (d, 2 * ff), "down_w": (ff, d)}.items():
-        if int8:
-            layers[name + "_q"] = ((nl, din, dout), "q8")
-            layers[name + "_s"] = ((nl, 1, dout), "s8")
-        else:
-            layers[name] = ((nl, din, dout), "w")
-    text = {"embed": ((v, d), "w"), "layers": layers, "final_ln_w": ((d,), "one")}
-    if not model["tie_word_embeddings"]:
-        text["lm_head"] = ((v, d), "w")
+    d = model["hidden_size"]
     vd, vff, depth = vc["hidden_size"], vc["intermediate_size"], vc["depth"]
     patch_in = vc["in_chans"] * vc["temporal_patch_size"] * vc["patch_size"] ** 2
     merged = vd * vc["spatial_merge_size"] ** 2
@@ -93,7 +95,7 @@ def spec(model: Dict) -> Dict:
     # until training moves them, so random weights never serve a VRT token
     # and every seed's queries do the same work after the last text token
     proto = {"ln_w": ((d,), "zero"), "ln_b": ((d,), "zero"), "down_w": ((d, r), "w"), "up_w": ((r, d), "w")}
-    return {"vision": vision, "text": text, "decoder": _decoder(dc, d), "proto": proto}
+    return {"vision": vision, "text": text_layout(model).text_spec(model), "decoder": _decoder(dc, d), "proto": proto}
 
 
 def _leaves(tree, prefix=()) -> List[Tuple[Tuple[str, ...], Tuple[int, ...], str]]:

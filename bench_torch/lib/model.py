@@ -8,44 +8,34 @@ check) does not.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 from . import inputs
 
 
-def port_config(model: Dict, **overrides):
-    """The program's `PaDTConfig` with the file's numbers."""
+def _fill(cls, keys: Dict):
+    """`cls` with each field that `keys` names set from it (lists as
+    tuples); the fields it does not name keep the program's defaults."""
+    known = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: tuple(v) if isinstance(v, list) else v for k, v in keys.items() if k in known})
+
+
+def port_config(model: Dict):
+    """The program's `PaDTConfig` with the file's numbers: `TextConfig` and
+    `PaDTConfig`'s own fields from the top-level keys of the same names,
+    `VisionConfig` from `vision_config` (its `in_chans` is `in_channels`),
+    `DecoderConfig` from `decoder_config` (at the text's `hidden_size`)."""
     from padt_tpu_torch.config import DecoderConfig, PaDTConfig, TextConfig, VisionConfig
 
-    vc, dc = model["vision_config"], model["decoder_config"]
-    return PaDTConfig(
-        vision=VisionConfig(
-            depth=vc["depth"], hidden_size=vc["hidden_size"], intermediate_size=vc["intermediate_size"],
-            num_heads=vc["num_heads"], in_channels=vc["in_chans"], patch_size=vc["patch_size"],
-            temporal_patch_size=vc["temporal_patch_size"], spatial_merge_size=vc["spatial_merge_size"],
-            out_hidden_size=vc["out_hidden_size"], window_size=vc["window_size"],
-            fullatt_block_indexes=tuple(vc["fullatt_block_indexes"]), rms_norm_eps=vc["rms_norm_eps"],
-        ),
-        text=TextConfig(
-            vocab_size=model["vocab_size"], hidden_size=model["hidden_size"],
-            num_hidden_layers=model["num_hidden_layers"], num_attention_heads=model["num_attention_heads"],
-            num_key_value_heads=model["num_key_value_heads"], head_dim=model["head_dim"],
-            intermediate_size=model["intermediate_size"], rms_norm_eps=model["rms_norm_eps"],
-            rope_theta=model["rope_theta"], mrope_section=tuple(model["mrope_section"]),
-            tie_word_embeddings=model["tie_word_embeddings"],
-        ),
-        decoder=DecoderConfig(
-            hidden_size=dc["hidden_size"], intermediate_size=dc["intermediate_size"], num_heads=dc["num_heads"],
-            llm_hidden_size=model["hidden_size"], spatial_merge_size=dc["spatial_merge_size"],
-            use_mask_head=dc["use_mask_head"],
-        ),
-        prototype_proj_rank=model["prototype_proj_rank"],
-        image_token_id=model["image_token_id"], video_token_id=model["video_token_id"],
-        vision_start_token_id=model["vision_start_token_id"], eos_token_id=model["eos_token_id"],
-        pad_token_id=model["pad_token_id"], max_image_patches=model["max_image_patches"],
-        max_vrt_per_object=model["max_vrt_per_object"], max_objects=model["max_objects"],
-        **overrides,
-    )
+    vision = dict(model["vision_config"])
+    vision["in_channels"] = vision.pop("in_chans")
+    parts = {
+        "vision": _fill(VisionConfig, vision),
+        "text": _fill(TextConfig, model),
+        "decoder": _fill(DecoderConfig, dict(model["decoder_config"], llm_hidden_size=model["hidden_size"])),
+    }
+    return _fill(PaDTConfig, {**model, **parts})
 
 
 def processor(cfg):
