@@ -39,6 +39,10 @@ one process per source, into build/padt_tpu_torch/), then:
      H9 over seg_full and over the slot ids seg_win, q/k/v views of the
      fused qkv), and H8 / H9 at 2 x 2304, where they were first timed, as
      yardsticks;
+     [moe]: H11, the grouped expert GEMM (csrc/expert_matmul.cu), against its
+     twin at Keye-VL-2.0-30B-A3B's widths at a 32-slot decode step (256
+     choices) and a 4 x 640 admission (20480 choices), timed beside its
+     bound;
   3. [forms]: drives the older forms through `ops.kv_cache` (store-then-
      attend over the 36 layers, unstacked and layer=, n_valid) with the
      launch counters reset before and read after, exact launches, and holds
@@ -2096,6 +2100,53 @@ def phase_stream(dev, card):
     return entries, {"stream_matmul": res["stream_launches"]}
 
 
+MOE_D, MOE_E, MOE_F, MOE_K, MOE_LAYERS = 2048, 128, 768, 8, 48  # Keye-VL-2.0-30B-A3B's expert layers
+
+
+def phase_moe(dev, card):
+    """[moe]: H11, the grouped expert GEMM (csrc/expert_matmul.cu), against
+    its plain twin at Keye-VL-2.0-30B-A3B's widths (d 2048, 128 experts of
+    768, 8 a token, seeded router and weights of std 0.02) at a serve decode step
+    (32 slots: 256 choices) and admission (bucket 4 x 640: 20480 choices):
+    both products (gate-up with SiLU fused, down with the routing weight),
+    each output within TOL of its largest, and a relative norm gap within
+    NORM_TOL; device ms of the two launches, of the twin and the bound (the
+    experts hit read once, each row's activations in and out; operations
+    2 x rows x 3 d F); launches on the serve path: two a layer, 96 a
+    forward (decode step or admission). One layer's experts (1.2 GB) exceed
+    the L2, so every call reads them from HBM."""
+    from padt_tpu_torch.ops import cuda_moe
+    from padt_tpu_torch.ops import moe as M
+
+    d, e, f, k = MOE_D, MOE_E, MOE_F, MOE_K
+    g = torch.Generator(device=dev).manual_seed(17)
+    gate_up = (0.02 * torch.randn(e, d, 2 * f, generator=g, device=dev)).to(torch.bfloat16)
+    down = (0.02 * torch.randn(e, f, d, generator=g, device=dev)).to(torch.bfloat16)
+    router = 0.02 * torch.randn(d, e, generator=g, device=dev)
+    for tokens, what in ((32, "decode step, 32 slots"), (2560, "admission, 4 x 640")):
+        x = torch.randn(tokens, d, generator=g, device=dev).to(torch.bfloat16)
+        w, ids = M.route(x, router, k, True)
+        grp = M.group(w, ids, e)
+        hit = int(grp.ends.diff(prepend=grp.ends.new_zeros(1)).gt(0).sum())
+        kern = lambda: cuda_moe.expert_matmul(cuda_moe.expert_matmul(x, gate_up, grp, "gateup"), down, grp, "down")
+        plain = lambda: M.expert_matmul_plain(M.expert_matmul_plain(x, gate_up, grp, "gateup"), down, grp, "down")
+        out, ref = kern(), plain()
+        gap = (out.float() - ref.float()).abs().max().item()
+        rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+        if not (gap <= TOL * ref.float().abs().max().item() and rel <= NORM_TOL):
+            raise AssertionError(f"[moe] H11 at {tokens} tokens: max gap {gap}, relative norm gap {rel}")
+        n0 = cuda_moe.launch_counts["expert_matmul"]
+        ms_k, ms_p = cuda_ms(kern), cuda_ms(plain, iters=3, warmup=1)
+        rows = tokens * k
+        b_ms, bound_by = bound_ms(hit * 3 * d * f * 2 + rows * 2 * (d + f) * 2, 2 * rows * 3 * d * f, BF16_TENSOR_FLOPS)
+        plans = [cuda_moe.expert_plan(tokens, k, e, kk, nw, mode == "gateup") for mode, kk, nw in (("gateup", d, 2 * f), ("down", f, d))]
+        plans = "; ".join(f"swap {p.swap} nt {p.nt} tile {p.tile_m} x {p.tile_n} stages {p.stages} grid {p.grid}" for p in plans)
+        log(f"[moe] H11 at {what} ({rows} choices, {hit} of {e} experts hit): {ms_k:.4f} ms device for both products "
+            f"({plans}), bound {b_ms:.4f} ms ({bound_by}; {100 * b_ms / ms_k:.1f} %), "
+            f"plain {ms_p:.4f} ms; max gap {gap:.5f}, norm gap {rel:.5f}; {cuda_moe.launch_counts['expert_matmul'] - n0} "
+            f"launches timed; on the serve path 2 a layer, {2 * MOE_LAYERS} a forward ({card})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this smoke run needs an NVIDIA GPU")
@@ -2113,6 +2164,7 @@ def main() -> int:
     name, card = phase_device()
     entries = phase_kernels(dev, card)
     phase_gqa(dev, card)
+    phase_moe(dev, card)
     stamp("build + kernel lines")
     forms_counts = phase_forms(dev, card, padt_tpu_torch.padt_3b())
     phase_tiny_reference(dev)

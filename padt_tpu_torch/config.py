@@ -1,6 +1,8 @@
 """Configuration tree for PaDT (the port's copy of `padt_tpu/config.py`,
 field for field the same, so `PaDTConfig.from_json(other.to_json())` moves a
-config between the two packages).
+config between the two packages). The port's own `TextConfig` fields for a
+sparse-expert text stack (`num_experts` and the rest of `_TEXT_OPTIONAL`)
+serialise only where they are set, so a dense config still moves.
 
 Single source of truth for model / decoder / runtime configuration, mirroring the
 capability surface of the reference (Gorilla-Lab-SCUT/PaDT):
@@ -69,6 +71,25 @@ class TextConfig:
     mrope_section: Tuple[int, int, int] = (16, 24, 24)
     tie_word_embeddings: bool = True
     attention_bias: bool = True  # Qwen2.5 uses bias on q/k/v projections
+    # sparse experts (Qwen3-MoE's keys): 0 experts is the dense SwiGLU MLP
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+    norm_topk_prob: bool = False  # renormalise the chosen experts' probabilities to sum to 1
+    qk_norm: bool = False  # RMSNorm over head_dim on each q and k head before rope (Qwen3)
+    sa_topk: int = 0  # keys a sparse-attention indexer keeps (0: none); the port has no indexer
+
+
+# TextConfig fields that serialise only where they differ from their defaults,
+# so a dense config's JSON is what it was before they existed
+_TEXT_OPTIONAL = ("num_experts", "num_experts_per_tok", "moe_intermediate_size", "norm_topk_prob", "qk_norm", "sa_topk")
+
+
+def text_opt(tc, name: str):
+    """A `_TEXT_OPTIONAL` field of a text config, or its default where the
+    config has no such field (the JAX package's `TextConfig`, which some
+    callers hand to the port)."""
+    return getattr(tc, name, getattr(TextConfig, name))
 
 
 @dataclass(frozen=True)
@@ -135,7 +156,12 @@ class PaDTConfig:
             if dataclasses.is_dataclass(o):
                 return {k: enc(v) for k, v in dataclasses.asdict(o).items()}
             return o
-        return json.dumps(enc(self), indent=2)
+        d = enc(self)
+        default = TextConfig()
+        for k in _TEXT_OPTIONAL:
+            if d["text"][k] == getattr(default, k):
+                del d["text"][k]
+        return json.dumps(d, indent=2)
 
     @staticmethod
     def from_json(s: str) -> "PaDTConfig":

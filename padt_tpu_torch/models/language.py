@@ -11,6 +11,12 @@ through H2 on the card; under autograd through their Functions
 H1 with the sin negated and H8/H9. bf16 decode attention is plain PyTorch,
 as JAX leaves it to XLA; int8 decode attention is H4 and its row store H6. Every product with
 an int8 weight (`*_w_q` / `*_w_s`) goes through H7 (`ops.quant.linear`).
+
+A config with experts (`TextConfig.num_experts`, Qwen3-MoE's block, which
+the JAX package does not have) replaces the dense MLP by `ops.moe.moe_mlp`
+(router in float32, top-k, H11's two grouped products); `attention_bias`
+False drops the q/k/v biases and `qk_norm` adds an RMSNorm over each q and
+k head before rope.
 """
 
 from __future__ import annotations
@@ -22,9 +28,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..config import TextConfig
+from ..config import TextConfig, text_opt
 from ..ops.attention import causal_attention, decode_attention, rope_pair_packed
 from ..ops.kv_cache import decode_attention_int8, empty_scale, quantize_kv, store_kv_rows_all_layers
+from ..ops.moe import Tally, moe_mlp
 from ..ops.norms import rms_norm
 from ..ops.quant import linear as qlinear
 from ..ops.rope import mrope_cos_sin
@@ -84,7 +91,11 @@ def quantize_cache(cache: KVCache) -> QuantKVCache:
 
 
 def init_text_params(cfg: TextConfig, generator: torch.Generator, device, dtype):
-    """Random init with the JAX tree's keys, shapes and dtypes."""
+    """Random init with the JAX tree's keys, shapes and dtypes; a config
+    without attention bias has no `*_b` leaves, one with `qk_norm` has the
+    per-head norms `q_norm_w` / `k_norm_w` (L, hd), and one with experts
+    has `router_w` (L, d, E), `experts_gateup_w` (L, E, d, 2F, gate | up)
+    and `experts_down_w` (L, E, F, d) in place of the dense MLP's leaves."""
     d, ff, nl = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
     qd = cfg.num_attention_heads * cfg.head_dim
     kvd = cfg.num_key_value_heads * cfg.head_dim
@@ -99,10 +110,18 @@ def init_text_params(cfg: TextConfig, generator: torch.Generator, device, dtype)
         "v_w": g(nl, d, kvd),
         "v_b": zeros((nl, kvd), device, dtype),
         "o_w": g(nl, qd, d),
-        "gate_w": g(nl, d, ff),
-        "up_w": g(nl, d, ff),
-        "down_w": g(nl, ff, d),
     }
+    if not cfg.attention_bias:
+        for name in ("q_b", "k_b", "v_b"):
+            del layers[name]
+    if text_opt(cfg, "qk_norm"):
+        layers["q_norm_w"] = ones((nl, cfg.head_dim), device, dtype)
+        layers["k_norm_w"] = ones((nl, cfg.head_dim), device, dtype)
+    if text_opt(cfg, "num_experts"):
+        e, fe = cfg.num_experts, cfg.moe_intermediate_size
+        layers.update(router_w=g(nl, d, e), experts_gateup_w=g(nl, e, d, 2 * fe), experts_down_w=g(nl, e, fe, d))
+    else:
+        layers.update(gate_w=g(nl, d, ff), up_w=g(nl, d, ff), down_w=g(nl, ff, d))
     params = {"embed": g(cfg.vocab_size, d), "layers": layers, "final_ln_w": ones((d,), device, dtype)}
     if not cfg.tie_word_embeddings:
         params["lm_head"] = g(cfg.vocab_size, d)
@@ -119,24 +138,42 @@ def _packed(lp) -> bool:
 
 
 def _qkv_rot(xn, lp, cfg: TextConfig, cos, sin):
-    """Projections + rope -> q (B, L, H, hd), k and v (B, L, Hkv, hd). With
-    packed weights (`qkv_w`, one fused product), H1 reads q and k as column
-    views of the fused output and v stays a view of it."""
+    """Projections (+ bias where the config has it; with `qk_norm` an
+    RMSNorm over each q and k head) + rope -> q (B, L, H, hd), k and v (B,
+    L, Hkv, hd). With packed weights (`qkv_w`, one fused product), H1 reads
+    q and k as column views of the fused output and v stays a view of it."""
     b, l, _ = xn.shape
     h, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    qk_norm, eps = text_opt(cfg, "qk_norm"), cfg.rms_norm_eps
     if _packed(lp):
-        qkv = qlinear(lp, "qkv_w", xn) + lp["qkv_b"]
-        qp, kp = qkv[..., : h * hd], qkv[..., h * hd : (h + hkv) * hd]
+        qkv = qlinear(lp, "qkv_w", xn)
+        if cfg.attention_bias:
+            qkv = qkv + lp["qkv_b"]
+        qk = qkv[..., : (h + hkv) * hd]
         v = qkv[..., (h + hkv) * hd :].unflatten(-1, (hkv, hd))
+        if qk_norm:  # one norm over the q and k heads side by side
+            w = torch.cat((lp["q_norm_w"].expand(h, hd), lp["k_norm_w"].expand(hkv, hd)))
+            qk = rms_norm(qk.unflatten(-1, (h + hkv, hd)), w, eps).flatten(-2)
+        qp, kp = qk[..., : h * hd], qk[..., h * hd :]
     else:
-        qp = qlinear(lp, "q_w", xn) + lp["q_b"]
-        kp = qlinear(lp, "k_w", xn) + lp["k_b"]
-        v = (qlinear(lp, "v_w", xn) + lp["v_b"]).reshape(b, l, hkv, hd)
+        qp, kp, vp = (qlinear(lp, n + "_w", xn) for n in ("q", "k", "v"))
+        if cfg.attention_bias:
+            qp, kp, vp = qp + lp["q_b"], kp + lp["k_b"], vp + lp["v_b"]
+        v = vp.reshape(b, l, hkv, hd)
+        if qk_norm:
+            qp = rms_norm(qp.unflatten(-1, (h, hd)), lp["q_norm_w"], eps).flatten(-2)
+            kp = rms_norm(kp.unflatten(-1, (hkv, hd)), lp["k_norm_w"], eps).flatten(-2)
     q, k = rope_pair_packed(qp, kp, cos, sin, h, hkv)
     return q.reshape(b, l, h, hd), k.reshape(b, l, hkv, hd), v
 
 
-def _mlp(x, lp):
+def _mlp(x, lp, cfg: Optional[TextConfig] = None, real=None, counts=None, rec=None):
+    """The dense SwiGLU MLP, or with experts `ops.moe.moe_mlp` (the choices
+    of the tokens `real` marks go to the layer's `counts` where given; its
+    host spans to `rec`)."""
+    if cfg is not None and text_opt(cfg, "num_experts"):
+        return moe_mlp(x, lp["router_w"], lp["experts_gateup_w"], lp["experts_down_w"], cfg.num_experts_per_tok,
+                       cfg.norm_topk_prob, real=real, counts=counts, rec=rec)
     if "gateup_w" in lp or "gateup_w_q" in lp:
         gu = qlinear(lp, "gateup_w", x)
         ff = gu.shape[-1] // 2
@@ -173,7 +210,7 @@ def text_forward(
     def body(x, lp):
         q, k, v = _qkv_rot(rms_norm(x, lp["input_ln_w"], eps), lp, cfg, cos, sin)
         x = x + qlinear(lp, "o_w", causal_attention(q, k, v, valid).reshape(b, l, -1))
-        return x + _mlp(rms_norm(x, lp["post_ln_w"], eps), lp), k, v
+        return x + _mlp(rms_norm(x, lp["post_ln_w"], eps), lp, cfg), k, v
 
     x, ks, vs = inputs_embeds, [], []
     for lp in _unbound_layers(params):
@@ -192,6 +229,9 @@ def prefill(
     capacity: int,
     kv_dtype: str = "bf16",
     batch_chunk: Optional[int] = None,
+    real: Optional[torch.Tensor] = None,
+    tally: Optional[Tally] = None,
+    rec=None,
 ):
     """Causal forward; the cache holds the prompt's K/V in slots [0, L).
 
@@ -201,7 +241,9 @@ def prefill(
     `QuantKVCache` whose rows past L hold what quantizing zero padding gives.
     batch_chunk: run each layer over row chunks of this size (when it divides
     B and B > chunk); rows are independent, so the result is the same and
-    only per-layer transients shrink."""
+    only per-layer transients shrink. With experts, `tally` (`ops.moe.Tally`)
+    gains the choices of the tokens `real` (B, L) marks and the (layer,
+    expert) pairs they hit, and `rec` the `moe.*` host spans."""
     if kv_dtype not in ("bf16", "int8"):
         raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
     b, l, _ = inputs_embeds.shape
@@ -221,7 +263,8 @@ def prefill(
             q, k, v = _qkv_rot(xn, lp, cfg, cos[s0:s1], sin[s0:s1])
             attn = causal_attention(q, k, v, valid[s0:s1])
             xc = xc + qlinear(lp, "o_w", attn.reshape(s1 - s0, l, -1))
-            xc = xc + _mlp(rms_norm(xc, lp["post_ln_w"], cfg.rms_norm_eps), lp)
+            rc, counts = (None, None) if tally is None else (real[s0:s1], tally.counts[li])
+            xc = xc + _mlp(rms_norm(xc, lp["post_ln_w"], cfg.rms_norm_eps), lp, cfg, rc, counts, rec)
             if int8:
                 cache.k[li, s0:s1, :, :l], cache.k_scale[li, s0:s1, :, :l] = quantize_kv(k.transpose(1, 2))
                 cache.v[li, s0:s1, :, :l], cache.v_scale[li, s0:s1, :, :l] = quantize_kv(v.transpose(1, 2))
@@ -230,6 +273,8 @@ def prefill(
                 cache.v[li, s0:s1, :l] = v
             outs.append(xc)
         x = torch.cat(outs) if chunked else outs[0]
+    if tally is not None:
+        tally.fold()
     hidden = rms_norm(x, params["final_ln_w"], cfg.rms_norm_eps)
     cache.valid[:, :l] = valid
     cache.length = l
@@ -261,12 +306,12 @@ def decode_step(params, cfg: TextConfig, inputs_embeds: torch.Tensor, position_i
         cache.v[li].index_copy_(1, slot, v)
         attn = decode_attention(q, cache.k[li], cache.v[li], cache.valid)
         x = x + qlinear(lp, "o_w", attn.reshape(b, 1, -1))
-        x = x + _mlp(rms_norm(x, lp["post_ln_w"], cfg.rms_norm_eps), lp)
+        x = x + _mlp(rms_norm(x, lp["post_ln_w"], cfg.rms_norm_eps), lp, cfg)
     cache.length = pos + 1
     return rms_norm(x, params["final_ln_w"], cfg.rms_norm_eps), cache
 
 
-def int8_layers(params, cfg: TextConfig, x, cos, sin, attend):
+def int8_layers(params, cfg: TextConfig, x, cos, sin, attend, real=None, tally=None, rec=None):
     """The text layers over an int8 cache that stays unchanged inside the
     loop (x (B, n, D): n new tokens). Each layer's new K/V rows are
     quantized and handed to `attend(q, layer, fresh)` as its fresh columns
@@ -274,7 +319,7 @@ def int8_layers(params, cfg: TextConfig, x, cos, sin, attend):
     rows of every layer for one store after the loop, stacked:
     (k8r (L, B, Hkv, n, hd), ksr (L, B, Hkv, n), v8r, vsr). Each layer
     quantizes straight into its slice of these buffers, so no copy stacks
-    them."""
+    them. `real`, `tally` and `rec` as in `prefill`."""
     b, n, _ = x.shape
     nl, hkv, hd = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
     i8 = lambda: torch.empty((nl, b, hkv, n, hd), dtype=torch.int8, device=x.device)
@@ -287,7 +332,10 @@ def int8_layers(params, cfg: TextConfig, x, cos, sin, attend):
         fresh = (*quantize_kv(k.transpose(1, 2), out=(k8r[li], ksr[li])),
                  *quantize_kv(v.transpose(1, 2), out=(v8r[li], vsr[li])))
         x = x + qlinear(lp, "o_w", attend(q, li, fresh).reshape(b, n, -1))
-        x = x + _mlp(rms_norm(x, lp["post_ln_w"], cfg.rms_norm_eps), lp)
+        counts = None if tally is None else tally.counts[li]
+        x = x + _mlp(rms_norm(x, lp["post_ln_w"], cfg.rms_norm_eps), lp, cfg, real, counts, rec)
+    if tally is not None:
+        tally.fold()
     return rms_norm(x, params["final_ln_w"], cfg.rms_norm_eps), stacked
 
 

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..config import PaDTConfig
+from ..config import PaDTConfig, text_opt
 from ..ops.norms import layer_norm
 from ..ops.quant import quantize_weight
 from ..preprocess.vision_process import OPENAI_CLIP_MEAN, OPENAI_CLIP_STD
@@ -73,6 +73,8 @@ def init_padt_params_quantized(
     them in `dtype`. packed=True builds the fused `qkv_w_q` / `gateup_w_q`
     serving layout directly."""
     tc = cfg.text
+    if text_opt(tc, "num_experts"):
+        raise NotImplementedError("int8 text weights for a sparse-expert stack are not implemented")
     params = init_padt_params(cfg.replace(text=dataclasses.replace(tc, num_hidden_layers=0)), generator, device, dtype)
     nl, d, ff = tc.num_hidden_layers, tc.hidden_size, tc.intermediate_size
     qd = tc.num_attention_heads * tc.head_dim
@@ -104,6 +106,8 @@ def quantize_params(params: Dict[str, Any]) -> Dict[str, Any]:
     and fp32 scales `{name}_s` (L, 1, out); every other leaf is shared with
     `params`. One layer at a time, so no all-layer fp32 copy is ever held."""
     layers = dict(params["text"]["layers"])
+    if "router_w" in layers:
+        raise NotImplementedError("int8 text weights for a sparse-expert stack are not implemented")
     for name in _QUANT_LAYER_WEIGHTS:
         w = layers.pop(name)  # (L, in, out)
         q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
@@ -119,7 +123,8 @@ def quantize_params(params: Dict[str, Any]) -> Dict[str, Any]:
 
 def pack_inference_params(params: Dict[str, Any]) -> Dict[str, Any]:
     """Fuse the text layers' weight streams for serving: q|k|v -> `qkv_w`
-    (L, d, (H+2*Hkv)*hd) and `qkv_b`, gate|up -> `gateup_w` (L, d, 2*ff); on
+    (L, d, (H+2*Hkv)*hd) and `qkv_b` (where the layers have biases),
+    gate|up -> `gateup_w` (L, d, 2*ff; an expert stack is fused already); on
     the int8 layout the values and the per-column scales concatenate the
     same way (`qkv_w_q` / `qkv_w_s`, `gateup_w_q` / `gateup_w_s`). Exact:
     each output column depends only on its own weight column. Idempotent;
@@ -134,8 +139,10 @@ def pack_inference_params(params: Dict[str, Any]) -> Dict[str, Any]:
             layers["gateup_w" + suffix] = cat(("gate_w" + suffix, "up_w" + suffix))
     else:
         layers["qkv_w"] = cat(("q_w", "k_w", "v_w"))
-        layers["gateup_w"] = cat(("gate_w", "up_w"))
-    layers["qkv_b"] = cat(("q_b", "k_b", "v_b"))
+        if "gate_w" in layers:
+            layers["gateup_w"] = cat(("gate_w", "up_w"))
+    if "q_b" in layers:
+        layers["qkv_b"] = cat(("q_b", "k_b", "v_b"))
     out = dict(params)
     out["text"] = dict(params["text"], layers=layers)
     return out

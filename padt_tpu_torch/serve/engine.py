@@ -16,7 +16,13 @@ On the card every decode step runs H4 (`int8_decode_attn`) in every layer
 and one H6 store; every suffix pass and speculative verify runs H5
 (`int8_verify_attn`) in every layer and one H6 store. On int8 weights every
 text-layer product of every forward runs H7 (`int8_matmul`, through
-`language.int8_layers`).
+`language.int8_layers`). On a sparse-expert stack (`TextConfig.num_experts`)
+every forward's expert products run H11 (`expert_matmul`, two a layer),
+inside the graph too, and the state's `moe_tally` counts on the device the
+token-expert choices of real tokens and the experts they hit; it travels
+with each chunk's flag readback into `ServeStats`. An engine refuses a KV
+capacity past the keys a model's sparse-attention indexer keeps
+(`TextConfig.sa_topk`): the port has no indexer.
 
 `ServeStats.prefill_s` / `decode_s` are device time between CUDA events,
 read at each chunk's flag readback (host clock on the CPU, where work is
@@ -26,7 +32,8 @@ device prefill landed in `decode_s`. Host time goes to a
 (`serve.run`, `serve.admit` > `admit.{stack,copy.readback,vision,prefill,
 insert.readback,insert,suffix}`, `serve.decode_chunk` > `decode.readback`,
 `decode.capture` and `decode.step` > `decode.{logits,layers,store}` (eager
-steps only), `serve.flag_readback`,
+steps only; with experts `moe.route` / `moe.experts` inside `decode.layers`
+and `admit.prefill`), `serve.flag_readback`,
 `serve.harvest` > `harvest.readback`, `tokens.readback`). A span whose name
 ends in `.readback` holds a call that blocks the host until the device has
 run the work queued before it: a readback, or a synchronous copy to the
@@ -45,7 +52,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import PaDTConfig
+from ..config import PaDTConfig, text_opt
 from ..models import language
 from ..models import padt as padt_model
 from ..ops import launch_tallies
@@ -55,6 +62,7 @@ from ..ops.kv_cache import (
     store_kv_rows_all_layers,
     store_kv_rows_k_all_layers,
 )
+from ..ops.moe import Tally
 from ..ops.rope import mrope_cos_sin
 from ..utils.profiling import Recorder
 
@@ -81,6 +89,10 @@ class DecodeState:
     active: torch.Tensor  # (B,) bool
     ctx: torch.Tensor  # (B, C) int64: prompt suffix + generated tokens (draft lookups)
     ctx_len: torch.Tensor  # (B,) int64
+    # sparse experts: choices of real tokens and (layer, expert) pairs they hit, summed on the
+    # device since the run started: decode choices, decode hits, prefill choices, prefill hits
+    moe_tally: torch.Tensor  # (4,) int64
+    moe_counts: torch.Tensor  # (L, E) int32: one forward's choices per (layer, expert), then folded
     generator: torch.Generator  # sampling stream (unused under greedy)
     steps: int = 0  # decode / verify forwards run since the run started
 
@@ -138,17 +150,23 @@ def init_state(
         active=z(n_slots, dt=torch.bool),
         ctx=torch.full((n_slots, capacity), -1, dtype=torch.int64, device=device),
         ctx_len=z(n_slots),
+        moe_tally=z(4),
+        moe_counts=z(nl, text_opt(t, "num_experts"), dt=torch.int32),
         generator=torch.Generator(device=device).manual_seed(seed),
     )
 
 
 def prefill(
     params, cfg: PaDTConfig, batch: Dict[str, torch.Tensor], rope_deltas, capacity: int,
-    return_artifacts: bool = False, *, rec: Recorder,
+    return_artifacts: bool = False, *, rec: Recorder, n_real: Optional[int] = None,
+    tally: Optional[Tally] = None,
 ):
     """Vision + causal int8 prefill for a request bucket -> insertable pack
     (and the bucket's `VisionArtifacts` with return_artifacts). Host spans
-    `admit.vision` and `admit.prefill` go to `rec`."""
+    `admit.vision` and `admit.prefill` (with experts, `moe.*` inside it) go
+    to `rec`. With experts, `tally` gains the choices of the prompt tokens
+    of the first `n_real` rows (the rest pad the bucket) and the (layer,
+    expert) pairs they hit."""
     ids = batch["input_ids"]
     r, l = ids.shape
     dev = ids.device
@@ -157,8 +175,13 @@ def prefill(
     with rec.span("admit.prefill"):
         embeds = padt_model.extended_embed(params, cfg, ids, art.proto, art.merged)
         valid = batch["attention_mask"].bool()
+        real = None
+        if tally is not None:
+            real = valid.clone()
+            real[r if n_real is None else n_real :] = False
         hidden, qc = language.prefill(
             params["text"], cfg.text, embeds, batch["position_ids"], valid, capacity, kv_dtype="int8",
+            real=real, tally=tally, rec=rec,
         )
         # left-aligned prompt context for draft lookups (prompts are LEFT padded)
         plen = valid.sum(-1)
@@ -199,14 +222,32 @@ def insert(state: DecodeState, pack: PrefillPack, slots: torch.Tensor, budgets: 
     return state
 
 
-def _decode_step_slots(params, tcfg, inputs_embeds, state: DecodeState, *, rec: Recorder) -> torch.Tensor:
+def _moe_counts(tcfg, state: DecodeState, phase: int, real, rec: Recorder) -> Dict[str, Any]:
+    """`int8_layers`' MoE arguments: the state's decode (phase 0) or
+    prefill (1) tally, the real rows and the recorder; none for a dense
+    stack."""
+    if not text_opt(tcfg, "num_experts"):
+        return {}
+    if real is None:
+        return {"rec": rec}
+    return {"real": real, "tally": _tally(state, phase), "rec": rec}
+
+
+def _tally(state: DecodeState, phase: int) -> Tally:
+    """The state's decode (phase 0) or prefill (1) expert tally."""
+    return Tally(state.moe_counts, state.moe_tally[2 * phase : 2 * phase + 2])
+
+
+def _decode_step_slots(params, tcfg, inputs_embeds, state: DecodeState, *, rec: Recorder, real=None) -> torch.Tensor:
     """One decode step over the pool with per-slot cache positions; returns
     the post-norm hidden (B, 1, D) and updates the state's cache and `valid`
     in place. The layer loop reads the pre-update cache (H4 with the current
     token as its fresh column); one H6 launch then writes every layer's row
     at each slot's own position. Inactive slots run too: their outputs are
     discarded and their clamped row writes land in caches never read again.
-    The host's time goes to `rec` as `decode.layers` and `decode.store`."""
+    With experts the slots `real` (B,) marks are counted in the state's
+    decode tally. The host's time goes to `rec` as `decode.layers` and
+    `decode.store`."""
     b = inputs_embeds.shape[0]
     with rec.span("decode.layers"):
         pos3 = state.text_pos[None, :, None].expand(3, b, 1)
@@ -222,6 +263,7 @@ def _decode_step_slots(params, tcfg, inputs_embeds, state: DecodeState, *, rec: 
             lambda q, li, fresh: decode_attention_int8(
                 q, state.k8, state.ks, state.v8, state.vs, state.valid, layer=li, fresh_kv=fresh,
             ),
+            **_moe_counts(tcfg, state, 0, real if real is None else real[:, None], rec),
         )
     with rec.span("decode.store"):
         store_kv_rows_all_layers(state.k8, state.ks, state.v8, state.vs, *new_rows, store_pos)
@@ -231,7 +273,7 @@ def _decode_step_slots(params, tcfg, inputs_embeds, state: DecodeState, *, rec: 
 
 def _decode_spec_slots(
     params, tcfg, inputs_embeds, state: DecodeState, store_pos, active_mask=None, n_store_rows=None,
-    *, rec: Recorder,
+    *, rec: Recorder, prefill_rows: bool = False,
 ):
     """K-token verify forward over the pool: the K tokens' K/V are stored at
     store_pos..store_pos+K-1 and all K queries attend over one cache read
@@ -242,6 +284,8 @@ def _decode_spec_slots(
     `state.active`). `n_store_rows` (B,) limits how many of the K rows are
     physically written per slot (default K): a slot outside a pool-wide
     suffix pass passes 0, since its clamped store_pos may land on live rows.
+    With experts, the rows written count in the state's decode tally, or
+    its prefill tally for a suffix pass (`prefill_rows`).
     The host's time goes to `rec` as `decode.layers` and `decode.store`."""
     if active_mask is None:
         active_mask = state.active
@@ -253,11 +297,16 @@ def _decode_spec_slots(
         cols = torch.arange(state.valid.shape[1], device=dev)[None, :]
         newly = (cols >= store_pos[:, None]) & (cols < store_pos[:, None] + kq)
         new_valid = state.valid | (newly & active_mask[:, None])
+        real = None
+        if text_opt(tcfg, "num_experts"):  # the rows written, for the expert tally
+            real = torch.arange(kq, device=dev)[None, :] < (kq if n_store_rows is None else n_store_rows[:, None])
+            real &= active_mask[:, None]
         hidden, new_rows = language.int8_layers(
             params, tcfg, inputs_embeds, cos, sin,
             lambda q, li, fresh: decode_attention_int8_multi(
                 q, state.k8, state.ks, state.v8, state.vs, state.valid, store_pos, layer=li, fresh_kv=fresh,
             ),
+            **_moe_counts(tcfg, state, 1 if prefill_rows else 0, real, rec),
         )
     with rec.span("decode.store"):
         store_kv_rows_k_all_layers(state.k8, state.ks, state.v8, state.vs, *new_rows, store_pos, n_rows=n_store_rows)
@@ -285,7 +334,8 @@ def _suffix_prefill_step(
     emb = padt_model.extended_embed(params, cfg, inputs, state.proto)
     cap = state.valid.shape[1]
     store_pos = state.write_pos.clamp(max=cap - kq)
-    hid = _decode_spec_slots(params["text"], cfg.text, emb, state, store_pos, active_mask=mask, n_store_rows=slen, rec=rec)
+    hid = _decode_spec_slots(params["text"], cfg.text, emb, state, store_pos, active_mask=mask, n_store_rows=slen,
+                             rec=rec, prefill_rows=True)
     # drop the right-pad rows: keep [0, write_pos) and [store_pos, store_pos + slen)
     cols = torch.arange(cap, device=dev)[None, :]
     state.valid &= (cols < (store_pos + slen)[:, None]) | (cols < state.write_pos[:, None])
@@ -443,7 +493,7 @@ def _plain_step(params, cfg: PaDTConfig, state: DecodeState, sampling: Tuple, *,
         # the next forward runs for the whole pool; inactive slots' writes
         # are masked through valid / write_pos
         emb = padt_model.extended_embed(params, cfg, tok[:, None], st.proto)
-    st.cur_hidden.copy_(_decode_step_slots(params["text"], cfg.text, emb, st, rec=rec))
+    st.cur_hidden.copy_(_decode_step_slots(params["text"], cfg.text, emb, st, rec=rec, real=active))
     moved = st.active.long()
     st.write_pos.add_(moved)
     st.text_pos.add_(moved)
@@ -612,6 +662,12 @@ class ServeStats:
     slot_step_utilization: float = 0.0  # generated / (steps * slots)
     graph_steps: int = 0  # decode steps run by replaying the engine's CUDA graph
     graph_captures: int = 0  # captures of that graph (one per engine on the card)
+    # sparse experts (0 for a dense stack), summed on the device and read with the chunk's flags
+    decode_expert_rows: int = 0  # token-expert choices of active slots, over layers and decode steps
+    decode_experts_hit: int = 0  # (layer, expert) pairs with at least one of them, over decode steps
+    prefill_expert_rows: int = 0  # choices of the prompt tokens of real requests (suffix passes too)
+    prefill_experts_hit: int = 0
+    moe_forwards: int = 0  # forwards through the expert layers: prefills, suffix passes, decode steps
     prefix_hits: int = 0
     prefix_misses: int = 0
     prefill_tokens_saved: int = 0
@@ -677,6 +733,7 @@ class RunCtx:
         self.stats = ServeStats()
         self.prev_n_gen = None
         self.rec = rec  # the run's host spans
+        self.prefill_forwards = 0  # prefills and suffix passes run
         self.spans: List[Tuple[str, Any, Any]] = []  # (stat, start mark, end mark) not yet read
         # observed early-EOS completion lengths, for the chunk sizer's p90
         self.obs_lens: deque = deque(maxlen=256)
@@ -745,6 +802,12 @@ class ServeEngine:
         # K rows of headroom keep a slot at its last token off live rows
         cap = prompt_len + max_new_tokens + self.speculative
         self.capacity = -(-cap // 128) * 128
+        self.moe = bool(text_opt(cfg.text, "num_experts"))
+        if 0 < text_opt(cfg.text, "sa_topk") < self.capacity:
+            raise ValueError(
+                f"KV capacity {self.capacity} exceeds the {cfg.text.sa_topk} keys this model's sparse-attention "
+                "indexer keeps: the indexer is not implemented, and dense attention would differ from the model"
+            )
         embed = params["text"]["embed"]
         self.device = embed.device
         self.oracle_draft_seq = None if oracle_draft_seq is None else self._tensor(oracle_draft_seq)
@@ -759,8 +822,11 @@ class ServeEngine:
         self.prefix_cache_entries = prefix_cache_entries
         self._prefix_cache: Dict[Any, Tuple[PrefillPack, Any, int]] = {}  # insertion-ordered LRU
 
-    def _prefill(self, batch, deltas, rec: Recorder):
-        return prefill(self.params, self.cfg, batch, deltas, self.capacity, return_artifacts=self.keep_artifacts, rec=rec)
+    def _prefill(self, ctx: RunCtx, batch, deltas, n_real: int):
+        ctx.prefill_forwards += 1
+        tally = _tally(self.state, 1) if self.moe else None
+        return prefill(self.params, self.cfg, batch, deltas, self.capacity, return_artifacts=self.keep_artifacts,
+                       rec=ctx.rec, n_real=n_real, tally=tally)
 
     def _chunk(self, n: int, rec: Recorder):
         if self.speculative:
@@ -815,13 +881,17 @@ class ServeEngine:
         ctx.free = list(range(self.n_slots))
         ctx.prev_n_gen = np.zeros(self.n_slots, np.int64)
         self.state.steps = self._graph.steps = self._graph.captures = 0
+        self.state.moe_tally.zero_()
         return ctx
 
     def _sync_flags(self):
-        """One readback per chunk: active flags and n_gen (synchronizes the stream)."""
-        both = torch.cat([self.state.active.long(), self.state.n_gen]).cpu().numpy()
+        """One readback per chunk: active flags and n_gen, and with experts
+        the state's MoE tally (synchronizes the stream)."""
+        st = self.state
+        parts = [st.active.long(), st.n_gen] + ([st.moe_tally] if self.moe else [])
+        both = torch.cat(parts).cpu().numpy()
         n = self.n_slots
-        return both[:n].astype(bool), both[n:], self.state.steps
+        return both[:n].astype(bool), both[n : 2 * n], both[2 * n :], st.steps
 
     def _tensor(self, values) -> torch.Tensor:
         return torch.as_tensor(np.asarray(values, np.int64), device=self.device)
@@ -836,7 +906,7 @@ class ServeEngine:
                 stack, deltas, budgets = self._make_bucket(take, r)
             stack, deltas = self._upload(rec, stack, deltas)
             t0 = _mark(self.device)
-            out = self._prefill(stack, deltas, rec)
+            out = self._prefill(ctx, stack, deltas, len(take))
             pack, art = out if self.keep_artifacts else (out, None)
             self._insert(rec, pack, slots, budgets)
             ctx.spans.append(("prefill_s", t0, _mark(self.device)))
@@ -883,7 +953,7 @@ class ServeEngine:
                     stack = {k: _stack_rows(k, [p.batch[k] for p in uniq] + [uniq[0].batch[k]] * pad) for k in uniq[0].batch}
                     deltas = torch.tensor([p.rope_delta for p in uniq] + [0] * pad, dtype=torch.int64)
                 stack, deltas = self._upload(rec, stack, deltas)
-                out = self._prefill(stack, deltas, rec)
+                out = self._prefill(ctx, stack, deltas, len(uniq))
                 pack, art = out if self.keep_artifacts else (out, None)
                 for i, p in enumerate(uniq):
                     plen = int(np.sum(np.asarray(p.batch["attention_mask"])))
@@ -929,6 +999,7 @@ class ServeEngine:
                         sfx_t[:, c0 : c0 + _SUFFIX_K], (slen_t - c0).clamp(0, _SUFFIX_K), rec=rec,
                     )
                     ctx.stats.suffix_passes += 1
+                    ctx.prefill_forwards += 1
             ctx.spans.append(("prefill_s", t0, _mark(self.device)))
             ctx.stats.admissions += 1
             ctx.prev_n_gen[slots] = 0
@@ -995,7 +1066,7 @@ class ServeEngine:
         completed, and harvest the finished slots."""
         rec = ctx.rec
         with rec.span("serve.flag_readback"):
-            active, n_gen, steps_done = self._sync_flags()
+            active, n_gen, tally, steps_done = self._sync_flags()
         done = [s for s in ctx.occupant if not active[s]]
         with rec.span("serve.harvest"):
             for stat, a, b in ctx.spans:
@@ -1003,6 +1074,11 @@ class ServeEngine:
             ctx.spans.clear()
             ctx.stats.decode_steps = steps_done
             ctx.stats.graph_steps, ctx.stats.graph_captures = self._graph.steps, self._graph.captures
+            if len(tally):
+                st = ctx.stats
+                st.decode_expert_rows, st.decode_experts_hit, st.prefill_expert_rows, st.prefill_experts_hit = (
+                    int(v) for v in tally)
+                st.moe_forwards = steps_done + ctx.prefill_forwards
             ctx.prev_n_gen = n_gen.copy()
             if not done:
                 return
