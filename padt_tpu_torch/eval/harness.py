@@ -325,6 +325,7 @@ class InferenceEngine:
     _STREAM_COUNTS = (
         "generated_tokens", "decode_steps", "suffix_passes", "admissions",
         "prompt_tokens", "prompt_slots", "patches", "patch_slots", "graph_steps", "graph_captures",
+        "admit_graph_replays", "admit_graph_captures",
         "decode_expert_rows", "decode_experts_hit", "prefill_expert_rows", "prefill_experts_hit", "moe_forwards",
     )
 

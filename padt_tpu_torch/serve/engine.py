@@ -10,7 +10,9 @@ index assignment, `copy_` and `add_`: each leaf keeps its tensor, and so
 its address, for the engine's life), and a decode chunk is a Python loop
 that reads `active.any()` once per step, where JAX ran one `while_loop`
 program. On the card the plain steps of a chunk replay one CUDA graph of
-the step (`DecodeGraph`), captured once per engine.
+the step (`DecodeGraph`), captured once per engine, and each plain
+admission (tower, prefill, insert) replays one CUDA graph of its bucket
+shape (`AdmissionGraphs`), captured once per shape and engine.
 
 On the card every decode step runs H4 (`int8_decode_attn`) in every layer
 and one H6 store; every suffix pass and speculative verify runs H5
@@ -30,7 +32,7 @@ synchronous): the JAX engine's `prefill_s` measured dispatch only and its
 device prefill landed in `decode_s`. Host time goes to a
 `utils.profiling.Recorder` in spans named after the code they cover
 (`serve.run`, `serve.admit` > `admit.{stack,copy.readback,vision,prefill,
-insert.readback,insert,suffix}`, `serve.decode_chunk` > `decode.readback`,
+insert.readback,insert,suffix,capture,graph}`, `serve.decode_chunk` > `decode.readback`,
 `decode.capture` and `decode.step` > `decode.{logits,layers,store}` (eager
 steps only; with experts `moe.route` / `moe.experts` inside `decode.layers`
 and `admit.prefill`), `serve.flag_readback`,
@@ -158,15 +160,17 @@ def init_state(
 
 def prefill(
     params, cfg: PaDTConfig, batch: Dict[str, torch.Tensor], rope_deltas, capacity: int,
-    return_artifacts: bool = False, *, rec: Recorder, n_real: Optional[int] = None,
+    return_artifacts: bool = False, *, rec: Recorder, real_rows: Optional[torch.Tensor] = None,
     tally: Optional[Tally] = None,
 ):
     """Vision + causal int8 prefill for a request bucket -> insertable pack
     (and the bucket's `VisionArtifacts` with return_artifacts). Host spans
     `admit.vision` and `admit.prefill` (with experts, `moe.*` inside it) go
     to `rec`. With experts, `tally` gains the choices of the prompt tokens
-    of the first `n_real` rows (the rest pad the bucket) and the (layer,
-    expert) pairs they hit."""
+    of the rows `real_rows` (R,) bool marks on the device (every row where
+    it is None; the others pad the bucket) and the (layer, expert) pairs
+    they hit. It reads nothing back to the host, so a CUDA graph of it
+    replays on new inputs in the same tensors."""
     ids = batch["input_ids"]
     r, l = ids.shape
     dev = ids.device
@@ -177,8 +181,7 @@ def prefill(
         valid = batch["attention_mask"].bool()
         real = None
         if tally is not None:
-            real = valid.clone()
-            real[r if n_real is None else n_real :] = False
+            real = valid if real_rows is None else valid & real_rows[:, None]
         hidden, qc = language.prefill(
             params["text"], cfg.text, embeds, batch["position_ids"], valid, capacity, kv_dtype="int8",
             real=real, tally=tally, rec=rec,
@@ -500,6 +503,33 @@ def _plain_step(params, cfg: PaDTConfig, state: DecodeState, sampling: Tuple, *,
     st.active.copy_(active)
 
 
+def _capture(fn, pool=None, generator: Optional[torch.Generator] = None):
+    """Capture `fn(Recorder())` (nothing runs) on a side stream into a CUDA
+    graph with the memory pool `pool` (a new one where None) -> (the graph,
+    what `fn` returned, the launches a replay adds to the kernel wrappers'
+    tallies as (tally, key, count)). The capture's own calls are taken back
+    out of the tallies."""
+    g = torch.cuda.CUDAGraph()
+    if generator is not None:
+        g.register_generator_state(generator)
+    tallies = launch_tallies()
+    before = [dict(t) for t in tallies]
+    with torch.cuda.graph(g, pool=pool, capture_error_mode="thread_local"):  # other threads may use the card meanwhile
+        out = fn(Recorder())
+    launches = [(t, k, n - b.get(k, 0)) for t, b in zip(tallies, before) for k, n in t.items() if n != b.get(k, 0)]
+    for t, b in zip(tallies, before):
+        t.clear()
+        t.update(b)
+    return g, out, launches
+
+
+def _replay(graph, launches) -> None:
+    """Replay `graph` and count its launches in the tallies, as `_capture` gave them."""
+    graph.replay()
+    for t, k, n in launches:
+        t[k] = t.get(k, 0) + n
+
+
 class DecodeGraph:
     """A plain decode step captured once as a CUDA graph and replayed for
     every later step of one engine's state. The state's tensors keep their
@@ -535,25 +565,88 @@ class DecodeGraph:
     def capture(self, step, generator: Optional[torch.Generator]) -> None:
         """Capture `step(rec)` (nothing runs) on a side stream into a graph
         with its own memory pool."""
-        g = torch.cuda.CUDAGraph()
-        if generator is not None:
-            g.register_generator_state(generator)
-        tallies = launch_tallies()
-        before = [dict(t) for t in tallies]
-        with torch.cuda.graph(g, capture_error_mode="thread_local"):  # other threads may use the card meanwhile
-            step(Recorder())
-        self.launches = [(t, k, n - b.get(k, 0)) for t, b in zip(tallies, before) for k, n in t.items() if n != b.get(k, 0)]
-        for t, b in zip(tallies, before):
-            t.clear()
-            t.update(b)
-        self.graph = g
+        self.graph, _, self.launches = _capture(step, generator=generator)
         self.captures += 1
 
     def replay(self) -> None:
-        self.graph.replay()
-        for t, k, n in self.launches:
-            t[k] = t.get(k, 0) + n
+        _replay(self.graph, self.launches)
         self.steps += 1
+
+
+ADMISSION_GRAPHS = 4  # live admission graphs an engine keeps; an admission of another bucket shape runs eagerly
+
+
+@dataclass
+class _AdmissionGraph:
+    """One bucket shape's graph: the static device tensors it reads (the
+    bucket's leaves, and its rows' rope deltas, slots and budgets as one
+    (3, R) int64 tensor), what it returns, and its launches."""
+
+    batch: Dict[str, torch.Tensor]
+    rows: torch.Tensor
+    graph: Any = None
+    art: Any = None  # the bucket's VisionArtifacts, rewritten by every replay (keep_artifacts)
+    launches: Optional[List[Tuple[dict, Any, int]]] = None
+
+
+class AdmissionGraphs:
+    """An engine's admissions (tower, prefill, insert) captured as one CUDA
+    graph per bucket shape and replayed for every later admission of that
+    shape. The key is the bucket's rows and its leaves' shapes, which the
+    traffic fixes; every other input of an admission (the weights, the
+    state's tensors, the capacity) is fixed for the engine's life.
+
+    On the card the first admission of a key runs eagerly (it builds the
+    kernels, sets their attributes and settles cuBLAS's workspace), the
+    next captures and then replays, and every later one replays, while the
+    engine holds fewer than `ADMISSION_GRAPHS` graphs; an admission of a key
+    past that bound, and every admission on the CPU, runs eagerly. A graph
+    reads its bucket from static device tensors, which each admission fills
+    by copies from page-locked host memory that do not wait for the card
+    (the host allocator keeps a block until its copy has run), so the host
+    stacks the next bucket while the card runs this one. All of an
+    engine's admission graphs share one memory pool: they run one at a
+    time, and what a replay returns is copied out before the next.
+
+    `replays` (admissions replayed, the capturing one included) and
+    `captures` count since the engine's run started
+    (`ServeStats.admit_graph_replays` / `admit_graph_captures`); the
+    launch tallies count as `DecodeGraph`'s do."""
+
+    def __init__(self):
+        self.graphs: Dict[Any, _AdmissionGraph] = {}
+        self.eager: set = set()  # keys admitted eagerly on the card
+        self.pool = None  # the graphs' shared memory pool, from the first capture on
+        self.replays = 0
+        self.captures = 0
+
+    def graphed(self, key, on_card: bool) -> bool:
+        """Whether an admission of `key` replays a graph (capturing it first)."""
+        return on_card and key in self.eager and (key in self.graphs or len(self.graphs) < ADMISSION_GRAPHS)
+
+    def admit(self, key, batch: Dict[str, torch.Tensor], rows: torch.Tensor, body, rec: Recorder,
+              device: torch.device):
+        """Replay `key`'s graph on the page-locked bucket (`batch`, `rows`),
+        capturing `body(rec, batch, rows)` on static tensors of their shapes
+        on `device` first where the key has no graph yet. Returns a copy of
+        the bucket's artifacts (None without), made on the device."""
+        g = self.graphs.get(key)
+        if g is None:
+            with rec.span("admit.capture"):
+                g = _AdmissionGraph({k: torch.empty_like(v, device=device) for k, v in batch.items()},
+                                    torch.empty_like(rows, device=device))
+                if self.pool is None:
+                    self.pool = torch.cuda.graph_pool_handle()
+                g.graph, g.art, g.launches = _capture(lambda r: body(r, g.batch, g.rows), self.pool)
+            self.graphs[key] = g
+            self.captures += 1
+        with rec.span("admit.graph"):
+            for k, v in batch.items():
+                g.batch[k].copy_(v, non_blocking=True)
+            g.rows.copy_(rows, non_blocking=True)
+            _replay(g.graph, g.launches)
+            self.replays += 1
+            return None if g.art is None else type(g.art)(*(x.clone() for x in g.art))
 
 
 def decode_chunk(
@@ -662,6 +755,8 @@ class ServeStats:
     slot_step_utilization: float = 0.0  # generated / (steps * slots)
     graph_steps: int = 0  # decode steps run by replaying the engine's CUDA graph
     graph_captures: int = 0  # captures of that graph (one per engine on the card)
+    admit_graph_replays: int = 0  # `_admit` calls run by replaying a graph of their bucket shape (`AdmissionGraphs`)
+    admit_graph_captures: int = 0  # captures of those graphs (one per bucket shape and engine on the card)
     # sparse experts (0 for a dense stack), summed on the device and read with the chunk's flags
     decode_expert_rows: int = 0  # token-expert choices of active slots, over layers and decode steps
     decode_experts_hit: int = 0  # (layer, expert) pairs with at least one of them, over decode steps
@@ -707,9 +802,10 @@ def _host_leaf(v) -> torch.Tensor:
     return v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
 
 
-def _stack_rows(name: str, rows: List[Any]) -> torch.Tensor:
+def _stack_rows(name: str, rows: List[Any], pin: bool = False) -> torch.Tensor:
     """One-row request leaves -> one batch tensor on the host (position_ids
-    carries the 3 M-RoPE streams in dim 0 and the batch in dim 1)."""
+    carries the 3 M-RoPE streams in dim 0 and the batch in dim 1), in
+    page-locked memory with `pin`."""
     ts = [_host_leaf(x) for x in rows]
     shapes = {tuple(t.shape) for t in ts}
     if len(shapes) > 1:
@@ -717,7 +813,10 @@ def _stack_rows(name: str, rows: List[Any]) -> torch.Tensor:
             f"request leaf {name!r} has mixed shapes {shapes}: requests in one admission "
             "bucket must share prompt/patch buckets (run() groups them by shape)"
         )
-    return torch.cat(ts, dim=1 if name == "position_ids" else 0)
+    dim = 1 if name == "position_ids" else 0
+    shape = list(ts[0].shape)
+    shape[dim] *= len(ts)
+    return torch.cat(ts, dim=dim, out=torch.empty(shape, dtype=ts[0].dtype, pin_memory=pin))
 
 
 class RunCtx:
@@ -749,7 +848,11 @@ class ServeEngine:
     - decode advances in chunks sized by the budget- and expectation-aware
       sizer; each chunk ends in one (B,) active / n_gen flag readback;
     - on the card a plain (not speculative) decode step replays the
-      engine's `DecodeGraph` from the engine's second step on.
+      engine's `DecodeGraph` from the engine's second step on, and an
+      admission of full-prompt requests replays the engine's graph of its
+      bucket shape from the second admission of that shape on
+      (`AdmissionGraphs`; prefix-cached admissions run eagerly: their packs
+      live on in the prefix cache).
     """
 
     def __init__(
@@ -816,17 +919,31 @@ class ServeEngine:
             patch_bucket=patch_bucket, seed=seed,
         )
         self._graph = DecodeGraph()
+        self._admissions = AdmissionGraphs()
         if suffix_bucket % _SUFFIX_K:
             raise ValueError(f"suffix_bucket must be a multiple of {_SUFFIX_K}")
         self.suffix_bucket = suffix_bucket
         self.prefix_cache_entries = prefix_cache_entries
         self._prefix_cache: Dict[Any, Tuple[PrefillPack, Any, int]] = {}  # insertion-ordered LRU
 
-    def _prefill(self, ctx: RunCtx, batch, deltas, n_real: int):
-        ctx.prefill_forwards += 1
+    def _prefill(self, rec: Recorder, batch, deltas, real_rows: torch.Tensor):
         tally = _tally(self.state, 1) if self.moe else None
-        return prefill(self.params, self.cfg, batch, deltas, self.capacity, return_artifacts=self.keep_artifacts,
-                       rec=ctx.rec, n_real=n_real, tally=tally)
+        out = prefill(self.params, self.cfg, batch, deltas, self.capacity, return_artifacts=self.keep_artifacts,
+                      rec=rec, real_rows=real_rows, tally=tally)
+        return out if self.keep_artifacts else (out, None)
+
+    def _admission(self, rec: Recorder, batch: Dict[str, torch.Tensor], rows: torch.Tensor):
+        """An admission's device work on a bucket on the device (`rows`: its
+        rows' rope deltas, slots and budgets): the tower, the prefill (with
+        experts the tally of the rows with a budget: a padding row has
+        none) and the insert into the slots. Returns the bucket's
+        `VisionArtifacts` (None without `keep_artifacts`). The graphs of
+        `AdmissionGraphs` capture it."""
+        deltas, slots, budgets = rows
+        pack, art = self._prefill(rec, batch, deltas, budgets > 0)
+        with rec.span("admit.insert"):
+            insert(self.state, pack, slots, budgets)
+        return art
 
     def _chunk(self, n: int, rec: Recorder):
         if self.speculative:
@@ -848,22 +965,22 @@ class ServeEngine:
             raise ValueError("request needs either batch or prefix+suffix_ids")
         return tuple(sorted((k, tuple(v.shape)) for k, v in req.batch.items()))
 
-    def _make_bucket(self, reqs: List[Request], r: Optional[int] = None):
-        """An admission bucket on the host: the requests' leaves stacked and
-        padded to r rows with copies of the first, rope deltas, budgets (0 on
-        the padding rows)."""
-        r = r or self.prefill_bucket
-        pad = r - len(reqs)
-        stack = {k: _stack_rows(k, [q.batch[k] for q in reqs] + [reqs[0].batch[k]] * pad) for k in reqs[0].batch}
-        deltas = torch.tensor([q.rope_delta for q in reqs] + [0] * pad, dtype=torch.int64)
-        budgets = np.array([min(q.max_new_tokens, self.max_new_tokens) for q in reqs] + [0] * pad, np.int64)
-        return stack, deltas, budgets
+    def _make_bucket(self, reqs: List[Request], slots: List[int], pin: bool = False):
+        """An admission bucket on the host, in page-locked memory with `pin`:
+        the requests' leaves stacked and padded to len(slots) rows with
+        copies of the first, and the rows' rope deltas, slots and budgets (0
+        on the padding rows) as one (3, R) int64 tensor."""
+        pad = len(slots) - len(reqs)
+        stack = {k: _stack_rows(k, [q.batch[k] for q in reqs] + [reqs[0].batch[k]] * pad, pin) for k in reqs[0].batch}
+        rows = torch.tensor([[q.rope_delta for q in reqs] + [0] * pad, slots,
+                             [min(q.max_new_tokens, self.max_new_tokens) for q in reqs] + [0] * pad], dtype=torch.int64)
+        return stack, rows.pin_memory() if pin else rows
 
-    def _upload(self, rec: Recorder, stack: Dict[str, torch.Tensor], deltas: torch.Tensor):
+    def _upload(self, rec: Recorder, stack: Dict[str, torch.Tensor], rows: torch.Tensor):
         """A bucket's copies to the device, synchronous from pageable host
         memory: the first waits for the work queued before it."""
         with rec.span("admit.copy.readback"):
-            return {k: v.to(self.device) for k, v in stack.items()}, deltas.to(self.device)
+            return {k: v.to(self.device) for k, v in stack.items()}, rows.to(self.device)
 
     def start_run(self, requests: List[Request], schedule: str = "fifo", rec: Optional[Recorder] = None) -> RunCtx:
         """Order and group the requests and reset the per-run bookkeeping; `run`
@@ -881,6 +998,7 @@ class ServeEngine:
         ctx.free = list(range(self.n_slots))
         ctx.prev_n_gen = np.zeros(self.n_slots, np.int64)
         self.state.steps = self._graph.steps = self._graph.captures = 0
+        self._admissions.replays = self._admissions.captures = 0
         self.state.moe_tally.zero_()
         return ctx
 
@@ -897,18 +1015,27 @@ class ServeEngine:
         return torch.as_tensor(np.asarray(values, np.int64), device=self.device)
 
     def _admit(self, ctx: RunCtx, grp: deque, r: int):
+        """Admit up to r requests of one shape group as one bucket of r rows:
+        eagerly, or by replaying the engine's graph of the bucket's shape
+        (`AdmissionGraphs`)."""
         take = [grp.popleft() for _ in range(min(r, len(grp)))]
         ctx.n_pending -= len(take)
         slots = [ctx.free.pop() for _ in range(r)]
         rec = ctx.rec
+        key = (r, self._shape_key(take[0]))
+        on_card = self.device.type == "cuda"
+        graphed = self._admissions.graphed(key, on_card)
         with rec.span("serve.admit"):
             with rec.span("admit.stack"):
-                stack, deltas, budgets = self._make_bucket(take, r)
-            stack, deltas = self._upload(rec, stack, deltas)
+                stack, rows = self._make_bucket(take, slots, pin=graphed)
             t0 = _mark(self.device)
-            out = self._prefill(ctx, stack, deltas, len(take))
-            pack, art = out if self.keep_artifacts else (out, None)
-            self._insert(rec, pack, slots, budgets)
+            if graphed:
+                art = self._admissions.admit(key, stack, rows, self._admission, rec, self.device)
+            else:
+                art = self._admission(rec, *self._upload(rec, stack, rows))
+                if on_card:
+                    self._admissions.eager.add(key)
+            ctx.prefill_forwards += 1
             ctx.spans.append(("prefill_s", t0, _mark(self.device)))
             ctx.stats.admissions += 1
             ctx.stats.count_prefill([q.batch for q in take], r)
@@ -953,8 +1080,8 @@ class ServeEngine:
                     stack = {k: _stack_rows(k, [p.batch[k] for p in uniq] + [uniq[0].batch[k]] * pad) for k in uniq[0].batch}
                     deltas = torch.tensor([p.rope_delta for p in uniq] + [0] * pad, dtype=torch.int64)
                 stack, deltas = self._upload(rec, stack, deltas)
-                out = self._prefill(ctx, stack, deltas, len(uniq))
-                pack, art = out if self.keep_artifacts else (out, None)
+                ctx.prefill_forwards += 1
+                pack, art = self._prefill(rec, stack, deltas, torch.arange(ru, device=self.device) < len(uniq))
                 for i, p in enumerate(uniq):
                     plen = int(np.sum(np.asarray(p.batch["attention_mask"])))
                     arow = None if art is None else type(art)(*(x[i : i + 1] for x in art))
@@ -1074,6 +1201,8 @@ class ServeEngine:
             ctx.spans.clear()
             ctx.stats.decode_steps = steps_done
             ctx.stats.graph_steps, ctx.stats.graph_captures = self._graph.steps, self._graph.captures
+            ctx.stats.admit_graph_replays = self._admissions.replays
+            ctx.stats.admit_graph_captures = self._admissions.captures
             if len(tally):
                 st = ctx.stats
                 st.decode_expert_rows, st.decode_experts_hit, st.prefill_expert_rows, st.prefill_experts_hit = (
