@@ -75,7 +75,7 @@ one process per source, into build/padt_tpu_torch/), then:
      / decode seconds, decode tok/s and slot utilization. A plain decode
      step after an engine's capture replays its CUDA graph, so from there
      on the serve counts (here and in steps 7, 8 and 10) are the captured
-     step's, added once a replay (`serve.engine.DecodeGraph`);
+     step's, added once a replay (`serve.engine.Graphs`);
      `tests/test_torch_decode_graph.py` holds the kernels a profiler trace
      of a replay names against an eager step's;
   7. [qi8]: the same weights with PADT_DECODE_QI8's int8 x int8 decode

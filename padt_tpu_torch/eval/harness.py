@@ -23,7 +23,7 @@ import json
 import math
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -322,22 +322,17 @@ class InferenceEngine:
         fb_max = max((q.batch["input_ids"].shape[1] for q in reqs if q.batch is not None), default=0)
         return reqs, max(ups[-1] + sbucket, fb_max), sbucket
 
-    _STREAM_COUNTS = (
-        "generated_tokens", "decode_steps", "suffix_passes", "admissions",
-        "prompt_tokens", "prompt_slots", "patches", "patch_slots", "graph_steps", "graph_captures",
-        "admit_graph_replays", "admit_graph_captures",
-        "decode_expert_rows", "decode_experts_hit", "prefill_expert_rows", "prefill_experts_hit", "moe_forwards",
-    )
-
     def _record_stream_stats(self, sstats):
         """Accumulate the serve engine's device prefill / decode seconds and
-        its counters across run_stream calls, until `pop_stream_stats`."""
+        its counters (every int field of `ServeStats`) across run_stream
+        calls, until `pop_stream_stats`."""
+        counts = [f.name for f in fields(sstats) if isinstance(getattr(sstats, f.name), int)]
         acc = self._stream_stats
         if acc is None:
-            acc = self._stream_stats = {"engine_prefill_s": 0.0, "engine_decode_s": 0.0, **dict.fromkeys(self._STREAM_COUNTS, 0)}
+            acc = self._stream_stats = {"engine_prefill_s": 0.0, "engine_decode_s": 0.0, **dict.fromkeys(counts, 0)}
         acc["engine_prefill_s"] += sstats.prefill_s
         acc["engine_decode_s"] += sstats.decode_s
-        for k in self._STREAM_COUNTS:
+        for k in counts:
             acc[k] += getattr(sstats, k)
 
     def pop_stream_stats(self) -> Optional[Dict[str, Any]]:

@@ -10,9 +10,12 @@ index assignment, `copy_` and `add_`: each leaf keeps its tensor, and so
 its address, for the engine's life), and a decode chunk is a Python loop
 that reads `active.any()` once per step, where JAX ran one `while_loop`
 program. On the card the plain steps of a chunk replay one CUDA graph of
-the step (`DecodeGraph`), captured once per engine, and each plain
-admission (tower, prefill, insert) replays one CUDA graph of its bucket
-shape (`AdmissionGraphs`), captured once per shape and engine.
+the step, captured once per engine, and each plain admission (tower,
+prefill, insert) replays one CUDA graph of its bucket shape, captured once
+per shape and engine: two instances of `Graphs`, which holds the one rule
+of when to capture, the graphs' static inputs, launch tallies and
+counters. Every admission's host data reaches the device through
+`_upload`'s copies from page-locked memory, which do not wait.
 
 On the card every decode step runs H4 (`int8_decode_attn`) in every layer
 and one H6 store; every suffix pass and speculative verify runs H5
@@ -31,17 +34,18 @@ read at each chunk's flag readback (host clock on the CPU, where work is
 synchronous): the JAX engine's `prefill_s` measured dispatch only and its
 device prefill landed in `decode_s`. Host time goes to a
 `utils.profiling.Recorder` in spans named after the code they cover
-(`serve.run`, `serve.admit` > `admit.{stack,copy.readback,vision,prefill,
-insert.readback,insert,suffix,capture,graph}`, `serve.decode_chunk` > `decode.readback`,
-`decode.capture` and `decode.step` > `decode.{logits,layers,store}` (eager
-steps only; with experts `moe.route` / `moe.experts` inside `decode.layers`
-and `admit.prefill`), `serve.flag_readback`,
-`serve.harvest` > `harvest.readback`, `tokens.readback`). A span whose name
-ends in `.readback` holds a call that blocks the host until the device has
-run the work queued before it: a readback, or a synchronous copy to the
-device. A `decode.<part>.readback` lies inside `decode.step`. Not ported: `MultiEngine` (one replica
-per card, with the parallel slice) and `_pack_transient_fits` (a memory
-guard for a 16 GB TPU).
+(`serve.run`, `serve.admit` > `admit.{stack,vision,prefill,insert,suffix,
+capture,graph}` (`vision`, `prefill`, `insert` on eager admissions),
+`serve.decode_chunk` > `decode.readback`, `decode.capture` and
+`decode.step` > `decode.{logits,layers,store}` (eager steps only; with
+experts `moe.route` / `moe.experts` inside `decode.layers` and
+`admit.prefill`), `serve.flag_readback`, `serve.harvest` >
+`harvest.readback`, `tokens.readback`). A span whose name ends in
+`.readback` holds a call that blocks the host until the device has run the
+work queued before it: a readback, or a synchronous copy to the device. A
+`decode.<part>.readback` lies inside `decode.step`. Not ported:
+`MultiEngine` (one replica per card, with the parallel slice) and
+`_pack_transient_fits` (a memory guard for a 16 GB TPU).
 """
 
 from __future__ import annotations
@@ -390,8 +394,6 @@ def decode_chunk_spec(
     state: DecodeState,
     n_steps: int,
     draft_k: int,
-    oracle_seq: Optional[torch.Tensor] = None,  # benchmark-only: known-correct drafts
-    force_accept: bool = False,  # benchmark-only: accept every draft (tokens NOT valid)
     *,
     rec: Recorder,
 ) -> DecodeState:
@@ -401,8 +403,7 @@ def decode_chunk_spec(
     to plain greedy decoding: the model's own argmax decides every emitted
     token. Stops early when the pool drains. Host spans as `decode_chunk`'s,
     with `decode.logits` twice a step (the draft, then the acceptance) and
-    `decode.emit.readback` inside the second. `oracle_seq` lies on the
-    state's device."""
+    `decode.emit.readback` inside the second."""
     eos = cfg.eos_token_id
     b, t_cap = state.tokens.shape
     kq = draft_k
@@ -419,12 +420,8 @@ def decode_chunk_spec(
             with rec.span("decode.logits"):
                 logits0 = padt_model.extended_logits(params, cfg, st.cur_hidden, st.proto, st.num_merged)[:, 0]
                 t0 = torch.where(st.active, torch.argmax(logits0, dim=-1), cfg.pad_token_id)
-                if oracle_seq is not None:
-                    gi = (st.n_gen[:, None] + 1 + idxk[:, : kq - 1]).clamp(0, oracle_seq.shape[0] - 1)
-                    draft = oracle_seq[gi]
-                else:
-                    last1 = torch.gather(st.ctx, 1, (st.ctx_len[:, None] - 1).clamp(0, cap - 1))[:, 0]
-                    draft = _bigram_draft(st.ctx, st.ctx_len, last1, t0, kq)
+                last1 = torch.gather(st.ctx, 1, (st.ctx_len[:, None] - 1).clamp(0, cap - 1))[:, 0]
+                draft = _bigram_draft(st.ctx, st.ctx_len, last1, t0, kq)
                 inputs = torch.cat([t0[:, None], draft], dim=1)  # (B, K)
 
                 emb = padt_model.extended_embed(params, cfg, inputs, st.proto)
@@ -435,8 +432,6 @@ def decode_chunk_spec(
 
                 # longest accepted draft prefix: draft[:, i] must equal g[:, i]
                 acc = torch.cumprod((draft == g[:, :-1]).long(), dim=1).sum(dim=1)
-                if force_accept:
-                    acc = torch.full_like(acc, kq - 1)
                 emitted = 1 + acc
                 # stop at the first EOS among the emitted tokens, then at the budget
                 is_eos = inputs == eos
@@ -503,150 +498,101 @@ def _plain_step(params, cfg: PaDTConfig, state: DecodeState, sampling: Tuple, *,
     st.active.copy_(active)
 
 
-def _capture(fn, pool=None, generator: Optional[torch.Generator] = None):
-    """Capture `fn(Recorder())` (nothing runs) on a side stream into a CUDA
-    graph with the memory pool `pool` (a new one where None) -> (the graph,
-    what `fn` returned, the launches a replay adds to the kernel wrappers'
-    tallies as (tally, key, count)). The capture's own calls are taken back
-    out of the tallies."""
-    g = torch.cuda.CUDAGraph()
-    if generator is not None:
-        g.register_generator_state(generator)
-    tallies = launch_tallies()
-    before = [dict(t) for t in tallies]
-    with torch.cuda.graph(g, pool=pool, capture_error_mode="thread_local"):  # other threads may use the card meanwhile
-        out = fn(Recorder())
-    launches = [(t, k, n - b.get(k, 0)) for t, b in zip(tallies, before) for k, n in t.items() if n != b.get(k, 0)]
-    for t, b in zip(tallies, before):
-        t.clear()
-        t.update(b)
-    return g, out, launches
-
-
-def _replay(graph, launches) -> None:
-    """Replay `graph` and count its launches in the tallies, as `_capture` gave them."""
-    graph.replay()
-    for t, k, n in launches:
-        t[k] = t.get(k, 0) + n
-
-
-class DecodeGraph:
-    """A plain decode step captured once as a CUDA graph and replayed for
-    every later step of one engine's state. The state's tensors keep their
-    addresses for the engine's life (every path updates them in place), and
-    its slots, capacity, prototype table, sampling settings and weights are
-    fixed, so one graph serves every chunk.
-
-    It applies on the card only, and under sampling only where this PyTorch
-    can register the state's generator with a graph; a step it does not
-    apply to runs eagerly. Until the capture, steps run eagerly: the first
-    on the card builds the kernels, sets their attributes and settles
-    cuBLAS's workspace, and the next step of its run captures. Capture runs
-    nothing, so the step captured is then replayed.
-    The kernel wrappers' launch tallies (`ops.launch_tallies`) count a
-    replay's launches as those of the step captured; the capture's own calls
-    are taken back out. Module settings that a step reads are those of the
-    capture for the graph's life (`kv_cache._QI8_DEFAULT`, which the
-    environment sets at import).
-
-    `steps` (steps replayed) and `captures` count since the engine's run
-    started (`ServeStats.graph_steps` / `graph_captures`)."""
-
-    def __init__(self):
-        self.graph = None  # torch.cuda.CUDAGraph of one step, once captured
-        self.launches: List[Tuple[dict, Any, int]] = []  # (tally, key, launches a replay adds)
-        self.steps = 0
-        self.captures = 0
-
-    @staticmethod
-    def applies(state: DecodeState, do_sample: bool) -> bool:
-        return state.tokens.is_cuda and (not do_sample or hasattr(torch.cuda.CUDAGraph, "register_generator_state"))
-
-    def capture(self, step, generator: Optional[torch.Generator]) -> None:
-        """Capture `step(rec)` (nothing runs) on a side stream into a graph
-        with its own memory pool."""
-        self.graph, _, self.launches = _capture(step, generator=generator)
-        self.captures += 1
-
-    def replay(self) -> None:
-        _replay(self.graph, self.launches)
-        self.steps += 1
-
-
 ADMISSION_GRAPHS = 4  # live admission graphs an engine keeps; an admission of another bucket shape runs eagerly
 
 
-@dataclass
-class _AdmissionGraph:
-    """One bucket shape's graph: the static device tensors it reads (the
-    bucket's leaves, and its rows' rope deltas, slots and budgets as one
-    (3, R) int64 tensor), what it returns, and its launches."""
+def _upload(host, device: torch.device, into=None):
+    """Host tensors (a tensor, or a tuple or dict of them; page-locked where
+    `device` is the card) -> `device`, by copies that do not wait for the
+    card (the host allocator keeps a page-locked block until its copy has
+    run): into the tensors `into` where given, else into new ones. On the
+    CPU, new ones are the host tensors themselves."""
+    if isinstance(host, dict):
+        return {k: _upload(v, device, None if into is None else into[k]) for k, v in host.items()}
+    if isinstance(host, tuple):
+        return tuple(_upload(v, device, None if into is None else into[i]) for i, v in enumerate(host))
+    if into is not None:
+        return into.copy_(host, non_blocking=True)
+    return host.to(device, non_blocking=True)
 
-    batch: Dict[str, torch.Tensor]
-    rows: torch.Tensor
-    graph: Any = None
-    art: Any = None  # the bucket's VisionArtifacts, rewritten by every replay (keep_artifacts)
-    launches: Optional[List[Tuple[dict, Any, int]]] = None
 
+class Graphs:
+    """Work captured as CUDA graphs, keyed by shape, and replayed.
 
-class AdmissionGraphs:
-    """An engine's admissions (tower, prefill, insert) captured as one CUDA
-    graph per bucket shape and replayed for every later admission of that
-    shape. The key is the bucket's rows and its leaves' shapes, which the
-    traffic fixes; every other input of an admission (the weights, the
-    state's tensors, the capacity) is fixed for the engine's life.
+    `graphs(key, body, rec, *inputs)` runs `body(rec, *inputs on the
+    device)`, by one rule for every key: on the card the first call of a
+    key runs eagerly (it builds the kernels, sets their attributes and
+    settles cuBLAS's workspace), the second captures `body` (nothing runs)
+    and replays it, and later calls replay. At most `limit` graphs are kept,
+    in one memory pool (they run one at a time); a key past that, and every
+    call on the CPU, runs eagerly (`limit = 0`: every call). A graph reads
+    its inputs from static device tensors that each call fills by
+    `_upload`'s copies, and what it returns (None or a tuple of tensors)
+    from the memory the next replay rewrites, so a call returns a copy.
+    Everything else a body reads (the weights, the state's tensors, module
+    settings such as `kv_cache._QI8_DEFAULT`, the sampling generator, which
+    the capture registers) is read in place or fixed at the capture.
 
-    On the card the first admission of a key runs eagerly (it builds the
-    kernels, sets their attributes and settles cuBLAS's workspace), the
-    next captures and then replays, and every later one replays, while the
-    engine holds fewer than `ADMISSION_GRAPHS` graphs; an admission of a key
-    past that bound, and every admission on the CPU, runs eagerly. A graph
-    reads its bucket from static device tensors, which each admission fills
-    by copies from page-locked host memory that do not wait for the card
-    (the host allocator keeps a block until its copy has run), so the host
-    stacks the next bucket while the card runs this one. All of an
-    engine's admission graphs share one memory pool: they run one at a
-    time, and what a replay returns is copied out before the next.
+    The kernel wrappers' launch tallies (`ops.launch_tallies`) count a
+    replay's launches as those of the body captured; the capture's own
+    calls are taken back out. `replays` (the capturing call included) and
+    `captures` count since `reset`. Host spans: `capture_span` around a
+    capture, `replay_span` around a replay and its copies."""
 
-    `replays` (admissions replayed, the capturing one included) and
-    `captures` count since the engine's run started
-    (`ServeStats.admit_graph_replays` / `admit_graph_captures`); the
-    launch tallies count as `DecodeGraph`'s do."""
+    def __init__(self, limit: int, device: torch.device, capture_span: str, replay_span: str):
+        self.limit = limit
+        self.device = device
+        self.capture_span, self.replay_span = capture_span, replay_span
+        # every key called: None until captured, then (graph, static inputs, what it returns, the launches
+        # a replay adds as (tally, key, count))
+        self.graphs: Dict[Any, Optional[Tuple]] = {}
+        self.pool = None  # the graphs' memory pool, from the first capture on
+        self.replays = self.captures = 0
 
-    def __init__(self):
-        self.graphs: Dict[Any, _AdmissionGraph] = {}
-        self.eager: set = set()  # keys admitted eagerly on the card
-        self.pool = None  # the graphs' shared memory pool, from the first capture on
-        self.replays = 0
-        self.captures = 0
+    def reset(self) -> None:
+        self.replays = self.captures = 0
 
-    def graphed(self, key, on_card: bool) -> bool:
-        """Whether an admission of `key` replays a graph (capturing it first)."""
-        return on_card and key in self.eager and (key in self.graphs or len(self.graphs) < ADMISSION_GRAPHS)
+    def __call__(self, key, body, rec: Recorder, *inputs, generator: Optional[torch.Generator] = None):
+        if self.graphs.get(key) is None:
+            if not (key in self.graphs and self.device.type == "cuda"
+                    and sum(g is not None for g in self.graphs.values()) < self.limit):
+                self.graphs[key] = None
+                return body(rec, *_upload(inputs, self.device))
+            with rec.span(self.capture_span):
+                self.capture(key, body, inputs, generator)
+        with rec.span(self.replay_span):
+            return self.replay(key, *inputs)
 
-    def admit(self, key, batch: Dict[str, torch.Tensor], rows: torch.Tensor, body, rec: Recorder,
-              device: torch.device):
-        """Replay `key`'s graph on the page-locked bucket (`batch`, `rows`),
-        capturing `body(rec, batch, rows)` on static tensors of their shapes
-        on `device` first where the key has no graph yet. Returns a copy of
-        the bucket's artifacts (None without), made on the device."""
-        g = self.graphs.get(key)
-        if g is None:
-            with rec.span("admit.capture"):
-                g = _AdmissionGraph({k: torch.empty_like(v, device=device) for k, v in batch.items()},
-                                    torch.empty_like(rows, device=device))
-                if self.pool is None:
-                    self.pool = torch.cuda.graph_pool_handle()
-                g.graph, g.art, g.launches = _capture(lambda r: body(r, g.batch, g.rows), self.pool)
-            self.graphs[key] = g
-            self.captures += 1
-        with rec.span("admit.graph"):
-            for k, v in batch.items():
-                g.batch[k].copy_(v, non_blocking=True)
-            g.rows.copy_(rows, non_blocking=True)
-            _replay(g.graph, g.launches)
-            self.replays += 1
-            return None if g.art is None else type(g.art)(*(x.clone() for x in g.art))
+    def capture(self, key, body, inputs: Tuple = (), generator: Optional[torch.Generator] = None) -> None:
+        """Capture `body(Recorder(), *static inputs)` as `key`'s graph; the
+        static inputs are device copies of `inputs`."""
+        statics = _upload(inputs, self.device)
+        g = torch.cuda.CUDAGraph()
+        if generator is not None:
+            g.register_generator_state(generator)
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        tallies = launch_tallies()
+        before = [dict(t) for t in tallies]
+        with torch.cuda.graph(g, pool=self.pool, capture_error_mode="thread_local"):  # other threads may use the card
+            out = body(Recorder(), *statics)
+        launches = [(t, k, n - b.get(k, 0)) for t, b in zip(tallies, before) for k, n in t.items() if n != b.get(k, 0)]
+        for t, b in zip(tallies, before):
+            t.clear()
+            t.update(b)
+        self.graphs[key] = (g, statics, out, launches)
+        self.captures += 1
+
+    def replay(self, key, *inputs):
+        """Copy `inputs` into `key`'s static inputs, replay its graph and
+        count its launches; returns a copy of what it returns."""
+        g, statics, out, launches = self.graphs[key]
+        _upload(inputs, self.device, statics)
+        g.replay()
+        for t, k, n in launches:
+            t[k] = t.get(k, 0) + n
+        self.replays += 1
+        return None if out is None else type(out)(*(x.clone() for x in out))
 
 
 def decode_chunk(
@@ -660,38 +606,33 @@ def decode_chunk(
     top_p: Optional[float] = None,
     *,
     rec: Recorder,
-    graph: Optional[DecodeGraph] = None,
+    graphs: Graphs,
 ) -> DecodeState:
     """Advance every active slot up to `n_steps` tokens, in place; stops
     early when the pool drains (one `active.any()` readback per step).
     Token selection is `padt.sample_token` over each slot's own extended
-    vocabulary (greedy by default, else from `state.generator`). With a
-    `graph` that applies (`DecodeGraph`), the steps after the first eager
-    one on the card replay one captured step.
+    vocabulary (greedy by default, else from `state.generator`). Every
+    step goes through `graphs` under one key: on the card the steps after
+    the first replay one captured step.
 
     Host spans into `rec`: `decode.readback` for each `active.any()` wait
     (one a step, and one more where the pool drained before `n_steps`),
-    `decode.capture` for a capture, and `decode.step` for each step run: a
-    replay, or an eager step with the children `decode.logits` (logits,
-    sampling, token bookkeeping, the new token's embedding), `decode.layers`
-    (the text layers, each quantizing its new K/V rows) and `decode.store`
-    (H6's store of every layer's rows)."""
+    `decode.step` for each step run (a replay, with the engine's `graphs`,
+    or an eager step with the children `decode.logits` (logits, sampling,
+    token bookkeeping, the new token's embedding), `decode.layers` (the
+    text layers, each quantizing its new K/V rows) and `decode.store` (H6's
+    store of every layer's rows)), and `decode.capture` for the capture."""
     sampling = (do_sample, temperature, top_k, top_p)
-    if graph is not None and not graph.applies(state, do_sample):
-        graph = None
-    step = lambda r: _plain_step(params, cfg, state, sampling, rec=r)
+
+    def step(r: Recorder) -> None:
+        with r.span("decode.step"):  # an eager step's span; a replay's is `graphs`'
+            _plain_step(params, cfg, state, sampling, rec=r)
+
     for _ in range(n_steps):
         with rec.span("decode.readback"):
             if not bool(state.active.any()):
                 break
-        if graph is not None and graph.graph is None and state.steps:  # a step of this run ran eagerly
-            with rec.span("decode.capture"):
-                graph.capture(step, state.generator if do_sample else None)
-        with rec.span("decode.step"):
-            if graph is not None and graph.graph is not None:
-                graph.replay()
-            else:
-                step(rec)
+        graphs("step", step, rec, generator=state.generator if do_sample else None)
         state.steps += 1
     return state
 
@@ -753,9 +694,9 @@ class ServeStats:
     suffix_passes: int = 0  # pool-wide K=32 suffix passes (prefix-cached admissions)
     completions: int = 0
     slot_step_utilization: float = 0.0  # generated / (steps * slots)
-    graph_steps: int = 0  # decode steps run by replaying the engine's CUDA graph
+    graph_steps: int = 0  # decode steps run by replaying the engine's CUDA graph of a step (the capturing one too)
     graph_captures: int = 0  # captures of that graph (one per engine on the card)
-    admit_graph_replays: int = 0  # `_admit` calls run by replaying a graph of their bucket shape (`AdmissionGraphs`)
+    admit_graph_replays: int = 0  # `_admit` calls run by replaying the engine's graph of their bucket shape
     admit_graph_captures: int = 0  # captures of those graphs (one per bucket shape and engine on the card)
     # sparse experts (0 for a dense stack), summed on the device and read with the chunk's flags
     decode_expert_rows: int = 0  # token-expert choices of active slots, over layers and decode steps
@@ -802,10 +743,15 @@ def _host_leaf(v) -> torch.Tensor:
     return v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
 
 
-def _stack_rows(name: str, rows: List[Any], pin: bool = False) -> torch.Tensor:
+def _pinned(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """`t` in page-locked memory where `device` is the card (for `_upload`)."""
+    return t.pin_memory() if device.type == "cuda" else t
+
+
+def _stack_rows(name: str, rows: List[Any], device: torch.device) -> torch.Tensor:
     """One-row request leaves -> one batch tensor on the host (position_ids
     carries the 3 M-RoPE streams in dim 0 and the batch in dim 1), in
-    page-locked memory with `pin`."""
+    page-locked memory where `device` is the card."""
     ts = [_host_leaf(x) for x in rows]
     shapes = {tuple(t.shape) for t in ts}
     if len(shapes) > 1:
@@ -816,7 +762,7 @@ def _stack_rows(name: str, rows: List[Any], pin: bool = False) -> torch.Tensor:
     dim = 1 if name == "position_ids" else 0
     shape = list(ts[0].shape)
     shape[dim] *= len(ts)
-    return torch.cat(ts, dim=dim, out=torch.empty(shape, dtype=ts[0].dtype, pin_memory=pin))
+    return torch.cat(ts, dim=dim, out=torch.empty(shape, dtype=ts[0].dtype, pin_memory=device.type == "cuda"))
 
 
 class RunCtx:
@@ -848,11 +794,11 @@ class ServeEngine:
     - decode advances in chunks sized by the budget- and expectation-aware
       sizer; each chunk ends in one (B,) active / n_gen flag readback;
     - on the card a plain (not speculative) decode step replays the
-      engine's `DecodeGraph` from the engine's second step on, and an
+      engine's graph of a step from the engine's second step on, and an
       admission of full-prompt requests replays the engine's graph of its
-      bucket shape from the second admission of that shape on
-      (`AdmissionGraphs`; prefix-cached admissions run eagerly: their packs
-      live on in the prefix cache).
+      bucket shape from the second admission of that shape on (`Graphs`;
+      prefix-cached admissions run eagerly: their packs live on in the
+      prefix cache).
     """
 
     def __init__(
@@ -875,12 +821,8 @@ class ServeEngine:
         prefill_bucket_small: Optional[int] = None,
         max_chunk_steps: Optional[int] = None,
         speculative: int = 0,
-        oracle_draft_seq=None,  # benchmark-only: see decode_chunk_spec
-        force_accept: bool = False,  # benchmark-only: K-accept ceiling timing
         suffix_bucket: int = _SUFFIX_K,  # prefix-cached requests' max suffix length
         prefix_cache_entries: int = 8,  # device-resident prefix-KV LRU size
-        budget_blind: bool = False,  # the sizer ignores budgets (bench: every budget
-        #                              uninformative, EOS stops slots)
         packed_weights: bool = True,  # fused qkv / gateup weight streams
     ):
         if packed_weights:
@@ -898,8 +840,6 @@ class ServeEngine:
         if speculative and do_sample:
             raise ValueError("speculative decoding is greedy-only (exactness)")
         self.speculative = int(speculative)
-        self.force_accept = force_accept
-        self.budget_blind = budget_blind
         self.sampling = (do_sample, temperature, top_k, top_p)
         # a verify writes K rows past write_pos before acceptance is known:
         # K rows of headroom keep a slot at its last token off live rows
@@ -913,13 +853,12 @@ class ServeEngine:
             )
         embed = params["text"]["embed"]
         self.device = embed.device
-        self.oracle_draft_seq = None if oracle_draft_seq is None else self._tensor(oracle_draft_seq)
         self.state = init_state(
             cfg, n_slots, self.capacity, max_new_tokens, embed.dtype, self.device,
             patch_bucket=patch_bucket, seed=seed,
         )
-        self._graph = DecodeGraph()
-        self._admissions = AdmissionGraphs()
+        self._decode_graphs = Graphs(1, self.device, "decode.capture", "decode.step")
+        self._admit_graphs = Graphs(ADMISSION_GRAPHS, self.device, "admit.capture", "admit.graph")
         if suffix_bucket % _SUFFIX_K:
             raise ValueError(f"suffix_bucket must be a multiple of {_SUFFIX_K}")
         self.suffix_bucket = suffix_bucket
@@ -937,8 +876,8 @@ class ServeEngine:
         rows' rope deltas, slots and budgets): the tower, the prefill (with
         experts the tally of the rows with a budget: a padding row has
         none) and the insert into the slots. Returns the bucket's
-        `VisionArtifacts` (None without `keep_artifacts`). The graphs of
-        `AdmissionGraphs` capture it."""
+        `VisionArtifacts` (None without `keep_artifacts`). The engine's
+        admission graphs capture it."""
         deltas, slots, budgets = rows
         pack, art = self._prefill(rec, batch, deltas, budgets > 0)
         with rec.span("admit.insert"):
@@ -947,11 +886,9 @@ class ServeEngine:
 
     def _chunk(self, n: int, rec: Recorder):
         if self.speculative:
-            decode_chunk_spec(
-                self.params, self.cfg, self.state, n, self.speculative, self.oracle_draft_seq, self.force_accept, rec=rec,
-            )
+            decode_chunk_spec(self.params, self.cfg, self.state, n, self.speculative, rec=rec)
         else:
-            decode_chunk(self.params, self.cfg, self.state, n, *self.sampling, rec=rec, graph=self._graph)
+            decode_chunk(self.params, self.cfg, self.state, n, *self.sampling, rec=rec, graphs=self._decode_graphs)
 
     @staticmethod
     def _shape_key(req: Request):
@@ -965,22 +902,25 @@ class ServeEngine:
             raise ValueError("request needs either batch or prefix+suffix_ids")
         return tuple(sorted((k, tuple(v.shape)) for k, v in req.batch.items()))
 
-    def _make_bucket(self, reqs: List[Request], slots: List[int], pin: bool = False):
-        """An admission bucket on the host, in page-locked memory with `pin`:
-        the requests' leaves stacked and padded to len(slots) rows with
-        copies of the first, and the rows' rope deltas, slots and budgets (0
-        on the padding rows) as one (3, R) int64 tensor."""
+    def _make_bucket(self, reqs: List[Any], slots: List[int], budgets: Optional[List[int]] = None):
+        """An admission bucket on the host, page-locked on the card (for
+        `_upload`): the leaves of `reqs` (requests, or shared prefixes)
+        stacked and padded to len(slots) rows with copies of the first, and
+        `_rows` of their rope deltas, the slots and the budgets (the
+        requests' own where None)."""
         pad = len(slots) - len(reqs)
-        stack = {k: _stack_rows(k, [q.batch[k] for q in reqs] + [reqs[0].batch[k]] * pad, pin) for k in reqs[0].batch}
-        rows = torch.tensor([[q.rope_delta for q in reqs] + [0] * pad, slots,
-                             [min(q.max_new_tokens, self.max_new_tokens) for q in reqs] + [0] * pad], dtype=torch.int64)
-        return stack, rows.pin_memory() if pin else rows
+        stack = {k: _stack_rows(k, [q.batch[k] for q in reqs] + [reqs[0].batch[k]] * pad, self.device)
+                 for k in reqs[0].batch}
+        if budgets is None:
+            budgets = [min(q.max_new_tokens, self.max_new_tokens) for q in reqs]
+        return stack, self._rows([q.rope_delta for q in reqs], slots, budgets)
 
-    def _upload(self, rec: Recorder, stack: Dict[str, torch.Tensor], rows: torch.Tensor):
-        """A bucket's copies to the device, synchronous from pageable host
-        memory: the first waits for the work queued before it."""
-        with rec.span("admit.copy.readback"):
-            return {k: v.to(self.device) for k, v in stack.items()}, rows.to(self.device)
+    def _rows(self, deltas: List[int], slots: List[int], budgets: List[int]) -> torch.Tensor:
+        """A bucket's rows as one (3, R) int64 tensor, page-locked on the
+        card: rope deltas, slots and budgets, each padded with 0 to
+        R = len(slots) (a budget of 0 marks a padding row)."""
+        pad = lambda v: list(v) + [0] * (len(slots) - len(v))
+        return _pinned(torch.tensor([pad(deltas), slots, pad(budgets)], dtype=torch.int64), self.device)
 
     def start_run(self, requests: List[Request], schedule: str = "fifo", rec: Optional[Recorder] = None) -> RunCtx:
         """Order and group the requests and reset the per-run bookkeeping; `run`
@@ -997,8 +937,9 @@ class ServeEngine:
         ctx.n_pending = len(requests)
         ctx.free = list(range(self.n_slots))
         ctx.prev_n_gen = np.zeros(self.n_slots, np.int64)
-        self.state.steps = self._graph.steps = self._graph.captures = 0
-        self._admissions.replays = self._admissions.captures = 0
+        self.state.steps = 0
+        self._decode_graphs.reset()
+        self._admit_graphs.reset()
         self.state.moe_tally.zero_()
         return ctx
 
@@ -1011,30 +952,19 @@ class ServeEngine:
         n = self.n_slots
         return both[:n].astype(bool), both[n : 2 * n], both[2 * n :], st.steps
 
-    def _tensor(self, values) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(values, np.int64), device=self.device)
-
     def _admit(self, ctx: RunCtx, grp: deque, r: int):
-        """Admit up to r requests of one shape group as one bucket of r rows:
-        eagerly, or by replaying the engine's graph of the bucket's shape
-        (`AdmissionGraphs`)."""
+        """Admit up to r requests of one shape group as one bucket of r rows
+        through the engine's admission graphs, keyed by the bucket's shape:
+        eagerly, or by replaying the graph of that shape."""
         take = [grp.popleft() for _ in range(min(r, len(grp)))]
         ctx.n_pending -= len(take)
         slots = [ctx.free.pop() for _ in range(r)]
         rec = ctx.rec
-        key = (r, self._shape_key(take[0]))
-        on_card = self.device.type == "cuda"
-        graphed = self._admissions.graphed(key, on_card)
         with rec.span("serve.admit"):
             with rec.span("admit.stack"):
-                stack, rows = self._make_bucket(take, slots, pin=graphed)
+                bucket = self._make_bucket(take, slots)
             t0 = _mark(self.device)
-            if graphed:
-                art = self._admissions.admit(key, stack, rows, self._admission, rec, self.device)
-            else:
-                art = self._admission(rec, *self._upload(rec, stack, rows))
-                if on_card:
-                    self._admissions.eager.add(key)
+            art = self._admit_graphs((r, self._shape_key(take[0])), self._admission, rec, *bucket)
             ctx.prefill_forwards += 1
             ctx.spans.append(("prefill_s", t0, _mark(self.device)))
             ctx.stats.admissions += 1
@@ -1076,12 +1006,10 @@ class ServeEngine:
             if uniq:
                 with rec.span("admit.stack"):
                     ru = self.prefill_bucket_small if len(uniq) <= self.prefill_bucket_small else self.prefill_bucket
-                    pad = ru - len(uniq)
-                    stack = {k: _stack_rows(k, [p.batch[k] for p in uniq] + [uniq[0].batch[k]] * pad) for k in uniq[0].batch}
-                    deltas = torch.tensor([p.rope_delta for p in uniq] + [0] * pad, dtype=torch.int64)
-                stack, deltas = self._upload(rec, stack, deltas)
+                    bucket = self._make_bucket(uniq, [0] * ru, [])  # a prefix row has no slot and no budget
+                stack, rows = _upload(bucket, self.device)
                 ctx.prefill_forwards += 1
-                pack, art = self._prefill(rec, stack, deltas, torch.arange(ru, device=self.device) < len(uniq))
+                pack, art = self._prefill(rec, stack, rows[0], torch.arange(ru, device=self.device) < len(uniq))
                 for i, p in enumerate(uniq):
                     plen = int(np.sum(np.asarray(p.batch["attention_mask"])))
                     arow = None if art is None else type(art)(*(x[i : i + 1] for x in art))
@@ -1106,8 +1034,9 @@ class ServeEngine:
                     ctx.stats.prefill_tokens_saved += e[2]
             # 2) splice the prefix KV into the slots
             pack = _pack_concat([e[0] for e in entries] + [entries[0][0]] * (r - len(take)))
-            budgets = [min(q.max_new_tokens, self.max_new_tokens) for q in take] + [0] * (r - len(take))
-            self._insert(rec, pack, slots, budgets)
+            rows = _upload(self._rows([], slots, [min(q.max_new_tokens, self.max_new_tokens) for q in take]), self.device)
+            with rec.span("admit.insert"):
+                insert(self.state, pack, rows[1], rows[2])
             # 3) suffix passes over the pool (other slots' rows stay untouched)
             with rec.span("admit.suffix"):
                 sfx = np.full((self.n_slots, self.suffix_bucket), self.cfg.pad_token_id, np.int64)
@@ -1116,8 +1045,7 @@ class ServeEngine:
                     ids = np.asarray(q.suffix_ids, np.int64).reshape(-1)
                     sfx[slots[i], : len(ids)] = ids
                     slen[slots[i]] = len(ids)
-                with rec.span("admit.suffix.readback"):  # synchronous copies
-                    sfx_t, slen_t = self._tensor(sfx), self._tensor(slen)
+                sfx_t, slen_t = _upload(tuple(_pinned(torch.from_numpy(a), self.device) for a in (sfx, slen)), self.device)
                 for c0 in range(0, self.suffix_bucket, _SUFFIX_K):
                     if not np.any(slen - c0 > 0):
                         break
@@ -1135,14 +1063,6 @@ class ServeEngine:
                 if entries[i][1] is not None:
                     ctx.slot_art[slots[i]] = entries[i][1]
             ctx.free.extend(slots[len(take):])
-
-    def _insert(self, rec: Recorder, pack: PrefillPack, slots: List[int], budgets):
-        """Splice a pack into `slots`. The slot and budget copies to the
-        device are synchronous: they wait for the prefill queued before them."""
-        with rec.span("admit.insert.readback"):
-            slots_t, budgets_t = self._tensor(slots), self._tensor(budgets)
-        with rec.span("admit.insert"):
-            insert(self.state, pack, slots_t, budgets_t)
 
     def _refill(self, ctx: RunCtx):
         """Admit pending requests: full buckets first, then straggler (small)
@@ -1169,8 +1089,7 @@ class ServeEngine:
         """Run one decode chunk sized per slot by its remaining budget (device
         truth) or, earlier, its expected length (the request's hint, or once
         >= 8 uncensored lengths were seen, their p90), the minimum over slots
-        clipped to [chunk_steps, max_chunk_steps]. `budget_blind` removes the
-        budget bound from the sizer only."""
+        clipped to [chunk_steps, max_chunk_steps]."""
         with ctx.rec.span("serve.decode_chunk"):
             est_default = int(np.percentile(list(ctx.obs_lens), 90)) if len(ctx.obs_lens) >= 8 else None
             remaining = []
@@ -1178,10 +1097,7 @@ class ServeEngine:
                 n_gen = int(ctx.prev_n_gen[s])
                 rem_budget = min(q.max_new_tokens, self.max_new_tokens) - n_gen
                 est = q.expected_new_tokens if q.expected_new_tokens is not None else est_default
-                if self.budget_blind:
-                    rem = (est - n_gen) if est is not None else self.max_chunk_steps
-                else:
-                    rem = min(est - n_gen, rem_budget) if est is not None else rem_budget
+                rem = min(est - n_gen, rem_budget) if est is not None else rem_budget
                 remaining.append(max(rem, 1))
             chunk_n = int(np.clip(min(remaining), self.chunk_steps, self.max_chunk_steps))
             t0 = _mark(self.device)
@@ -1200,9 +1116,8 @@ class ServeEngine:
                 setattr(ctx.stats, stat, getattr(ctx.stats, stat) + _span_s(a, b))
             ctx.spans.clear()
             ctx.stats.decode_steps = steps_done
-            ctx.stats.graph_steps, ctx.stats.graph_captures = self._graph.steps, self._graph.captures
-            ctx.stats.admit_graph_replays = self._admissions.replays
-            ctx.stats.admit_graph_captures = self._admissions.captures
+            ctx.stats.graph_steps, ctx.stats.graph_captures = self._decode_graphs.replays, self._decode_graphs.captures
+            ctx.stats.admit_graph_replays, ctx.stats.admit_graph_captures = self._admit_graphs.replays, self._admit_graphs.captures
             if len(tally):
                 st = ctx.stats
                 st.decode_expert_rows, st.decode_experts_hit, st.prefill_expert_rows, st.prefill_experts_hit = (
@@ -1213,7 +1128,7 @@ class ServeEngine:
                 return
             # gathers copy the rows, so a refilled slot cannot clobber them
             with rec.span("harvest.readback"):  # a synchronous copy
-                idx = self._tensor(done)
+                idx = torch.tensor(done, device=self.device)
             tok_rows = self.state.tokens[idx]
             hid_rows = self.state.hidden_out[idx] if self.collect_hidden else None
             for jd, s in enumerate(done):

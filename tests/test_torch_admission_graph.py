@@ -1,5 +1,5 @@
-"""The serve engine's CUDA graphs of an admission (`serve.engine.AdmissionGraphs`)
-against eager admissions, on the card.
+"""The serve engine's CUDA graphs of an admission (its admission instance of
+`serve.engine.Graphs`) against eager admissions, on the card.
 
 These need an NVIDIA GPU with nvcc and skip elsewhere (on the CPU every
 admission runs eagerly: `tests/test_torch_admission_cpu.py` holds that).
@@ -22,7 +22,6 @@ from padt_tpu_torch.models import padt as P
 from padt_tpu_torch.ops import launch_tallies
 from padt_tpu_torch.preprocess.vision_process import ProcessedImage
 from padt_tpu_torch.serve import Request, ServeEngine
-from padt_tpu_torch.serve import engine as S
 from padt_tpu_torch.utils.mock_tokenizer import make_tiny_tokenizer
 from padt_tpu_torch.utils.profiling import Recorder
 from padt_tpu_torch.vrt.processor import VisionTextProcessor
@@ -73,7 +72,7 @@ def _engine(cfg, params, graphs: bool):
     eng = ServeEngine(params, cfg, n_slots=8, max_new_tokens=12, prompt_len=128, prefill_bucket=2,
                       prefill_bucket_small=2, chunk_steps=4, patch_bucket=PATCHES, keep_artifacts=True)
     if not graphs:  # every admission eager, the engine otherwise the same
-        eng._admissions.graphed = lambda key, on_card: False
+        eng._admit_graphs.limit = 0
     return eng
 
 
@@ -147,11 +146,13 @@ def test_replayed_admissions_equal_eager(dev, kind):
     for f in FIELDS:  # the same admissions again (a run starts from a zero tally)
         assert torch.equal(getattr(graphed.state, f), getattr(eager.state, f)), f
 
-    g = next(iter(graphed._admissions.graphs.values()))
-    replay_launches = _launched(lambda: S._replay(g.graph, g.launches))
-    eager_launches = _launched(lambda: graphed._admission(Recorder(), g.batch, g.rows))
-    replayed = _hand_written(g.graph.replay)
-    eager_kernels = _hand_written(lambda: graphed._admission(Recorder(), g.batch, g.rows))
+    graphs = graphed._admit_graphs
+    key = next(k for k, g in graphs.graphs.items() if g is not None)
+    statics = graphs.graphs[key][1]  # the graph's static inputs, as the last replay left them
+    replay_launches = _launched(lambda: graphs.replay(key))
+    eager_launches = _launched(lambda: graphed._admission(Recorder(), *statics))
+    replayed = _hand_written(lambda: graphs.replay(key))
+    eager_kernels = _hand_written(lambda: graphed._admission(Recorder(), *statics))
     assert replayed == eager_kernels and sum(replayed.values()) > 0, (replayed, eager_kernels)
     named = lambda kernel: sum(n for k, n in replayed.items() if kernel in k)
     assert named("segment_flash_kernel") > 0 and named("window_slot_kernel") > 0  # H2, H3
@@ -170,7 +171,7 @@ def test_artifacts_outlive_later_replays(dev):
     ctx2 = eng.start_run(_requests(cfg, 9)[7:])  # two requests on new images: one bucket
     eng._refill(ctx2)
     torch.cuda.synchronize()
-    assert eng._admissions.replays == 1 and set(ctx2.occupant) < set(ctx.slot_art)
+    assert eng._admit_graphs.replays == 1 and set(ctx2.occupant) < set(ctx.slot_art)
     for s, a in ctx.slot_art.items():
         for x, y in zip(a, kept[s]):
             assert torch.equal(x, y), s

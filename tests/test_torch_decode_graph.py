@@ -1,5 +1,5 @@
-"""The serve engine's CUDA graph of a decode step (`serve.engine.DecodeGraph`)
-against eager decode steps, on the card.
+"""The serve engine's CUDA graph of a decode step (its decode instance of
+`serve.engine.Graphs`) against eager decode steps, on the card.
 
 These need an NVIDIA GPU with nvcc and skip elsewhere (on the CPU no step
 is graphed: `tests/test_torch_serve.py` holds that). Run them on the card
@@ -143,7 +143,7 @@ def test_graph_replay_equals_eager_serving(dev, weights):
     kw = dict(n_slots=4, max_new_tokens=12, prompt_len=128, prefill_bucket=2, prefill_bucket_small=1, chunk_steps=4,
               patch_bucket=PATCHES, collect_hidden=True)
     eager = ServeEngine(params, cfg, **kw)
-    eager._graph.applies = lambda state, do_sample: False  # every step eager, the engine otherwise the same
+    eager._decode_graphs.limit = 0  # every step eager, the engine otherwise the same
     ref, st_e, n_e, log_e = _run(eager, reqs)
     graphed = ServeEngine(params, cfg, **kw)
     res, st, n_g, log_g = _run(graphed, reqs)
@@ -164,7 +164,7 @@ def test_graph_replay_equals_eager_serving(dev, weights):
     assert (st2.graph_captures, st2.graph_steps) == (0, st2.decode_steps)
     assert _kernel(n_2, "int8_decode_attn") == cfg.text.num_hidden_layers * st2.decode_steps
 
-    replayed = _hand_written(graphed._graph.graph.replay)
+    replayed = _hand_written(lambda: graphed._decode_graphs.replay("step"))
     step = lambda: S._plain_step(graphed.params, cfg, graphed.state, graphed.sampling, rec=Recorder())  # its packed weights
     eager_step = _hand_written(step)
     assert replayed == eager_step, (replayed, eager_step)
@@ -174,17 +174,17 @@ def test_graph_replay_equals_eager_serving(dev, weights):
 
 
 def test_graph_under_sampling(dev):
-    """do_sample=True: where this PyTorch registers the engine's generator
-    with a graph, the steps after the first replay it and sample the eager
+    """do_sample=True: the capture registers the engine's generator with
+    the graph, so the steps after the first replay it and sample the eager
     engine's tokens from the same seed, leaving the generator at the eager
-    engine's offset; elsewhere every step runs eagerly. Each replay draws
-    anew: the offset moves on by a step's draws at every replay."""
+    engine's offset. Each replay draws anew: the offset moves on by a
+    step's draws at every replay."""
     cfg, params = _model(dev, "bf16")
     reqs = _requests(cfg, [6, 9, 4, 7, 5, 12], n_prefixed=0)
     kw = dict(n_slots=4, max_new_tokens=12, prompt_len=128, prefill_bucket=2, chunk_steps=4, patch_bucket=PATCHES,
               do_sample=True, temperature=0.8, top_k=20, seed=123)
     eager = ServeEngine(params, cfg, **kw)
-    eager._graph.applies = lambda state, do_sample: False
+    eager._decode_graphs.limit = 0
     ref, st_e, _, log_e = _run(eager, reqs)
     graphed = ServeEngine(params, cfg, **kw)
     res, st, _, log_g = _run(graphed, reqs)
@@ -192,12 +192,10 @@ def test_graph_under_sampling(dev):
     for uid, c in res.items():
         np.testing.assert_array_equal(c.tokens, ref[uid].tokens, err_msg=f"req {uid}")
     assert graphed.state.generator.get_offset() == eager.state.generator.get_offset() > 0
-    can = hasattr(torch.cuda.CUDAGraph, "register_generator_state")
-    assert (st.graph_captures, st.graph_steps) == ((1, st.decode_steps - 1) if can else (0, 0))
-    if can:
-        gen, offsets = graphed.state.generator, []
-        for _ in range(3):
-            offsets.append(gen.get_offset())
-            graphed._graph.graph.replay()
+    assert (st.graph_captures, st.graph_steps) == (1, st.decode_steps - 1)
+    gen, offsets = graphed.state.generator, []
+    for _ in range(3):
         offsets.append(gen.get_offset())
-        assert len({b - a for a, b in zip(offsets, offsets[1:])}) == 1 and offsets[1] > offsets[0]
+        graphed._decode_graphs.replay("step")
+    offsets.append(gen.get_offset())
+    assert len({b - a for a, b in zip(offsets, offsets[1:])}) == 1 and offsets[1] > offsets[0]

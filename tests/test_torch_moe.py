@@ -351,7 +351,7 @@ def test_graphed_keye_step_equals_eager_bit_for_bit(dev):
     reqs = _proc_requests(cfg, [12, 12, 12, 12])
     eng = ServeEngine(params, cfg, n_slots=4, max_new_tokens=12, prompt_len=128, prefill_bucket=4, chunk_steps=2,
                       patch_bucket=128)
-    eng._graph.applies = lambda state, do_sample: False
+    eng._decode_graphs.limit = 0
     ctx = eng.start_run(reqs)
     eng._refill(ctx)
     eng._dispatch_chunk(ctx)  # two eager steps
@@ -364,9 +364,9 @@ def test_graphed_keye_step_equals_eager_bit_for_bit(dev):
     eager = {n: getattr(st, n).clone() for n in names}
     for n in names:
         getattr(st, n).copy_(before[n])
-    graph = S.DecodeGraph()
-    graph.capture(step, None)
-    graph.replay()
+    graphs = S.Graphs(1, dev, "decode.capture", "decode.step")
+    graphs.capture("step", step)
+    graphs.replay("step")
     torch.cuda.synchronize()
     for n in names:
         assert torch.equal(getattr(st, n), eager[n]), n
