@@ -43,6 +43,12 @@ one process per source, into build/padt_tpu_torch/), then:
      twin at Keye-VL-2.0-30B-A3B's widths at a 32-slot decode step (256
      choices) and a 4 x 640 admission (20480 choices), timed beside its
      bound;
+     [tower-mlp]: one PaDT-3B tower block's MLP at 4 x 2304 rows as the
+     block runs it, plain (ff 3420) and packed at 3424 and at 3456 (each
+     against the plain one), device ms beside the three products' bound, and
+     the library GEMMs each form launches; H12 (the packed SwiGLU) against
+     its twin at 4 x 2304 rows of the port's width (3424) and a ragged row
+     count, launched on the serve path (32 a tower);
   3. [forms]: drives the older forms through `ops.kv_cache` (store-then-
      attend over the 36 layers, unstacked and layer=, n_valid) with the
      launch counters reset before and read after, exact launches, and holds
@@ -2147,6 +2153,92 @@ def phase_moe(dev, card):
             f"launches timed; on the serve path 2 a layer, {2 * MOE_LAYERS} a forward ({card})")
 
 
+def _gemm_kernels(fn):
+    """{device kernel name: launches} of `fn()` under `torch.profiler`, the
+    port's own kernels (namespace `padt`) and PyTorch's elementwise kernels
+    left out: the library GEMMs a form runs."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return Counter(e.name[:96] for e in prof.events() if e.device_type == cuda and "padt::" not in e.name
+                   and "at::native" not in e.name)
+
+
+def phase_tower_mlp(dev, card):
+    """[tower-mlp]: one PaDT-3B tower block's MLP (`models/vision.py::_mlp`:
+    x + the MLP of its norm, d 1280, ff 3420) at 4 x 2304 rows, random
+    weights and biases: the plain layout (three GEMMs at ff, whose rows
+    are not 16-byte aligned, bias adds, SiLU and multiply) and the packed
+    one at F' = 3424 (the least aligned width) and 3456 (a multiple of 64;
+    two GEMMs with their biases in the epilogue, H12 between). Each packed
+    output within NORM_TOL of the plain one in relative norm; device ms
+    (CUDA events) beside the bound of the three products at ff; the library
+    GEMM kernels each form launches, and `sm80` whether any of the packed
+    forms' names carries `cutlass_80` or `align2` (the packed ones must
+    not). The forms run in turns, three rounds of 30 calls; the median of
+    each is printed. Then H12's kernel lines (returned) at the port's width
+    (`packed_ff(ff)`, 3424), 4 x 2304 rows and 333 ragged rows."""
+    import dataclasses
+
+    from padt_tpu_torch import padt_3b
+    from padt_tpu_torch.models import vision as V
+    from padt_tpu_torch.ops import cuda_mlp
+
+    vc = padt_3b().vision
+    d, ff, m = vc.hidden_size, vc.intermediate_size, 4 * PATCHES
+    g = torch.Generator(device=dev).manual_seed(20)
+    blocks = V.init_vision_params(dataclasses.replace(vc, depth=1), g, dev, torch.bfloat16)["blocks"]
+    for k in ("gate_b", "up_b", "down_b"):
+        blocks[k] = (0.1 * torch.randn(blocks[k].shape, generator=g, device=dev)).to(torch.bfloat16)
+    x = torch.randn(4, PATCHES, d, generator=g, device=dev).to(torch.bfloat16)
+    layer = lambda b: {k: v[0] for k, v in b.items()}
+    forms = [("plain", ff, layer(blocks))] + [
+        (f"packed {V.packed_ff(ff, mult)}", V.packed_ff(ff, mult), layer(V.pack_vision_blocks(blocks, mult)))
+        for mult in (8, 64)
+    ]
+    ref = V._mlp(x, x, forms[0][2]).float()
+    mlp_weights = [forms[0][2][k] for k in ("gate_w", "up_w", "down_w", "gate_b", "up_b", "down_b")]
+    b_ms, b_by = bound_ms(nbytes(*mlp_weights) + 2 * nbytes(x), 2 * m * d * ff * 3, BF16_TENSOR_FLOPS)
+    fns = [lambda lp=lp: V._mlp(x, x, lp) for _, _, lp in forms]
+    ms = [[] for _ in forms]
+    for _ in range(3):  # the forms in turns, three rounds: the median of each
+        for i, fn in enumerate(fns):
+            ms[i].append(cuda_ms(fn, iters=30))
+    times = []
+    for (name, width, lp), fn, t in zip(forms, fns, ms):
+        gap = ((fn().float() - ref).norm() / ref.norm()).item()
+        if not gap <= NORM_TOL:
+            raise AssertionError(f"[tower-mlp] {name}: relative norm gap {gap} from the plain form > {NORM_TOL}")
+        kernels = _gemm_kernels(fn)
+        sm80 = any("cutlass_80" in k or "align2" in k for k in kernels)
+        if name != "plain" and sm80:
+            raise AssertionError(f"[tower-mlp] {name} ran an sm80 / align2 GEMM: {dict(kernels)}")
+        med = sorted(t)[1]
+        times.append(f"{name} {med:.4f} ms")
+        log(f"[tower-mlp] {name} (width {width}): {med:.4f} ms device (rounds {', '.join(f'{v:.4f}' for v in t)}), "
+            f"{b_ms / med:.3f} of the bound; norm gap {gap:.2e} from the plain form; sm80 {sm80}; library kernels "
+            f"{dict(kernels)} ({card})")
+    log(f"[tower-mlp] one block's MLP at {m} rows: {', '.join(times)}; bound {b_ms:.4f} ms ({b_by}: 3 products "
+        f"of {m} x {d} x {ff}); the port packs to {V.packed_ff(ff)} ({card})")
+
+    cases = []
+    for rows in (m, 333):
+        gu = torch.randn(rows, 2 * V.packed_ff(ff), generator=g, device=dev).to(torch.bfloat16)
+        cases.append({
+            "name": "swiglu", "shape": f"{rows} x {V.packed_ff(ff)}", "path": "3b_serve", "ulp": True, "tol": TOL,
+            "kern": lambda gu=gu: cuda_mlp.swiglu(gu), "plain": lambda gu=gu: cuda_mlp.swiglu_plain(gu),
+            "bound": (nbytes(gu) * 3 // 2, 0, BF16_TENSOR_FLOPS), "source": "swiglu.cu",
+            "replaces": "none: XLA fuses silu(gate) * up (padt_tpu/models/vision.py :141-143)",
+        })
+    return measure(cases, card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this smoke run needs an NVIDIA GPU")
@@ -2165,6 +2257,7 @@ def main() -> int:
     entries = phase_kernels(dev, card)
     phase_gqa(dev, card)
     phase_moe(dev, card)
+    entries += phase_tower_mlp(dev, card)
     stamp("build + kernel lines")
     forms_counts = phase_forms(dev, card, padt_tpu_torch.padt_3b())
     phase_tiny_reference(dev)

@@ -124,8 +124,9 @@ class InferenceEngine:
         """One ServeEngine per constructor-argument set, reused across calls
         (its prefix-KV LRU persists); at most 2 live engines, each holding an
         n_slots x capacity int8 KV pool. The engine packs its own copy of the
-        text weights; the harness adopts it, so `run_batch` then runs on the
-        packed weights and the unfused stacks are not kept alive beside them."""
+        text weights and of the tower's MLP; the harness adopts it, so
+        `run_batch` then runs on the packed weights and the unfused stacks
+        are not kept alive beside them."""
         from ..serve import ServeEngine
 
         key = tuple(sorted(kw.items()))

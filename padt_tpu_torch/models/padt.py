@@ -28,7 +28,7 @@ from ..preprocess.vision_process import OPENAI_CLIP_MEAN, OPENAI_CLIP_STD
 from . import language
 from .decoder import decoder_forward, init_decoder_params
 from .params import normal, ones, zeros
-from .vision import init_vision_params, vision_forward
+from .vision import init_vision_params, pack_vision_blocks, vision_forward
 
 NEG_INF = -1e30
 
@@ -127,11 +127,28 @@ def pack_inference_params(params: Dict[str, Any]) -> Dict[str, Any]:
     gate|up -> `gateup_w` (L, d, 2*ff; an expert stack is fused already); on
     the int8 layout the values and the per-column scales concatenate the
     same way (`qkv_w_q` / `qkv_w_s`, `gateup_w_q` / `gateup_w_s`). Exact:
-    each output column depends only on its own weight column. Idempotent;
-    the other leaves are shared with `params`."""
-    layers = dict(params["text"]["layers"])
-    if "qkv_w" in layers or "qkv_w_q" in layers:
+    each output column depends only on its own weight column. The vision
+    tower's blocks, where the tree has them, take their aligned serving
+    layout (`vision.pack_vision_blocks`: `gateup_w`, `gateup_b`, `down_w` at
+    a padded width). Idempotent; the other leaves are shared with `params`,
+    which is left as it was."""
+    layers = _pack_text_layers(params["text"]["layers"])
+    vision = params.get("vision")
+    blocks = pack_vision_blocks(vision["blocks"]) if vision is not None else None
+    if layers is params["text"]["layers"] and (vision is None or blocks is vision["blocks"]):
         return params
+    out = dict(params)
+    out["text"] = dict(params["text"], layers=layers)
+    if vision is not None:
+        out["vision"] = dict(vision, blocks=blocks)
+    return out
+
+
+def _pack_text_layers(layers: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """`pack_inference_params`' text half: `layers` itself where packed."""
+    if "qkv_w" in layers or "qkv_w_q" in layers:
+        return layers
+    layers = dict(layers)
     cat = lambda names: torch.cat([layers.pop(n) for n in names], dim=-1)
     if "q_w_q" in layers:
         for suffix in ("_q", "_s"):
@@ -143,9 +160,7 @@ def pack_inference_params(params: Dict[str, Any]) -> Dict[str, Any]:
             layers["gateup_w"] = cat(("gate_w", "up_w"))
     if "q_b" in layers:
         layers["qkv_b"] = cat(("q_b", "k_b", "v_b"))
-    out = dict(params)
-    out["text"] = dict(params["text"], layers=layers)
-    return out
+    return layers
 
 
 class _Tree(torch.nn.Module):

@@ -6,9 +6,9 @@ and zeroes them in `reset_launch_counts`."""
 
 def kernel_modules() -> tuple:
     """The CUDA kernel wrappers' modules."""
-    from . import cuda_attention, cuda_flash_bwd, cuda_kv, cuda_matmul, cuda_moe, cuda_quant
+    from . import cuda_attention, cuda_flash_bwd, cuda_kv, cuda_matmul, cuda_mlp, cuda_moe, cuda_quant
 
-    return (cuda_attention, cuda_flash_bwd, cuda_kv, cuda_matmul, cuda_quant, cuda_moe)
+    return (cuda_attention, cuda_flash_bwd, cuda_kv, cuda_matmul, cuda_quant, cuda_moe, cuda_mlp)
 
 
 def launch_tallies() -> tuple:

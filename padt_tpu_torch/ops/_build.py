@@ -42,6 +42,7 @@ _SIGNATURES = {
     "padt_int8_matmul": [_P, _LL, _P, _P, _P] + [_I] * 7 + [_P],
     "padt_stream_matmul": [_P, _LL] + [_P] * 5 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
     "padt_expert_matmul": [_P] * 6 + [_I] * 9 + [_P],
+    "padt_swiglu": [_P, _P, _LL, _I, _P],
 }
 
 

@@ -9,15 +9,18 @@ A replay runs the kernels the eager admission launches, on the same data,
 so the decode state it leaves must equal the eager admission's bit for bit
 (the KV rows and their scales, the slot bookkeeping, the carried hidden,
 the prototype tables, and with experts the prefill tally), and so must
-each slot's vision artifacts."""
+each slot's vision artifacts. The engine packs the tower (`gateup_w`), so
+every replay runs H12 once per tower block; `tower3b` puts PaDT-3B's tower
+(32 blocks, ff 3420 packed to 3424) on the tiny text stack."""
 
+import dataclasses
 from collections import Counter
 
 import numpy as np
 import pytest
 import torch
 
-from padt_tpu_torch import padt_tiny
+from padt_tpu_torch import padt_3b, padt_tiny
 from padt_tpu_torch.models import padt as P
 from padt_tpu_torch.ops import launch_tallies
 from padt_tpu_torch.preprocess.vision_process import ProcessedImage
@@ -46,10 +49,16 @@ def dev():
 
 def _model(dev, kind):
     """padt_tiny in bf16 on the card (text-layer weights scaled up from the
-    0.02 init), its int8-weight form, or the tiny expert stack."""
+    0.02 init), its int8-weight form, the tiny expert stack, or padt_tiny
+    with PaDT-3B's tower (`tower3b`, its weights drawn on the card)."""
     if kind == "moe":
         return _moe_model(dev, torch.bfloat16)
     cfg = padt_tiny()
+    if kind == "tower3b":
+        cfg = cfg.replace(vision=dataclasses.replace(padt_3b().vision, out_hidden_size=cfg.text.hidden_size))
+        p = P.init_padt_params(cfg, torch.Generator(device=dev).manual_seed(1), dev, torch.bfloat16)
+        p["text"]["layers"] = {k: v * 5.0 if v.dim() == 3 else v for k, v in p["text"]["layers"].items()}
+        return cfg, p
     p = P.init_padt_params(cfg, torch.Generator().manual_seed(1), "cpu", torch.float32)
     p["text"]["layers"] = {k: v * 5.0 if v.dim() == 3 else v for k, v in p["text"]["layers"].items()}
     to_dev = lambda t: {k: to_dev(v) for k, v in t.items()} if isinstance(t, dict) else t.to(dev, torch.bfloat16)
@@ -106,7 +115,7 @@ def _launched(fn):
             if n != b.get(k, 0)}
 
 
-@pytest.mark.parametrize("kind", ["bf16", "int8", "moe"])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "moe", "tower3b"])
 def test_replayed_admissions_equal_eager(dev, kind):
     """Four admissions of one bucket shape into an empty pool: the first
     eager, the second captures and replays, the third and fourth replay
@@ -116,7 +125,8 @@ def test_replayed_admissions_equal_eager(dev, kind):
     the artifacts of the second admission survive the two replays after
     it. A second run replays all four. Under the profiler a replay names
     each hand-written kernel of an eager admission as many times, and the
-    tallies count a replay's launches as an eager admission's."""
+    tallies count a replay's launches as an eager admission's: H12 once a
+    tower block (32 with PaDT-3B's tower)."""
     cfg, params = _model(dev, kind)
     reqs = _requests(cfg, 7)
     eager = _engine(cfg, params, graphs=False)
@@ -158,6 +168,8 @@ def test_replayed_admissions_equal_eager(dev, kind):
     assert named("segment_flash_kernel") > 0 and named("window_slot_kernel") > 0  # H2, H3
     assert (named("expert_gemm_kernel") > 0) == (kind == "moe") and (named("gemm_kernel<true") > 0) == (kind == "int8")
     assert replay_launches == eager_launches and replay_launches
+    assert [n for (_, k), n in replay_launches.items() if k == "swiglu"] == [cfg.vision.depth]
+    assert named("swiglu_kernel") == cfg.vision.depth
 
 
 def test_artifacts_outlive_later_replays(dev):

@@ -20,6 +20,7 @@ from padt_tpu.config import padt_tiny
 from padt_tpu.models import padt as JP
 from padt_tpu_torch.convert.from_jax import params_from_numpy, params_to_numpy
 from padt_tpu_torch.models import padt as TP
+from padt_tpu_torch.models.vision import pack_vision_blocks
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -61,14 +62,24 @@ def test_init_tree_matches_jax_keys_shapes_dtypes(dtype):
         assert tf[k].dtype == dtype, k
 
 
+def _jax_packed(jp):
+    """bridge(JAX pack(p)), its tower's blocks then in the port's serving
+    layout (JAX's tree keeps the plain tower; `test_torch_vision_packed.py`
+    holds that layout against the plain leaves)."""
+    tree = params_from_numpy(jax.tree.map(np.asarray, JP.pack_inference_params(jp)))
+    tree["vision"] = dict(tree["vision"], blocks=pack_vision_blocks(tree["vision"]["blocks"]))
+    return tree
+
+
 def test_pack_inference_params_matches_jax_key_for_key():
-    """pack(bridge(p)) == bridge(JAX pack(p)): the same keys, shapes and
-    values (a concatenation, exact); packing twice changes nothing."""
+    """pack(bridge(p)) == bridge(JAX pack(p)), the tower packed by the port's
+    rule: the same keys, shapes and values (a concatenation, exact);
+    packing twice changes nothing."""
     cfg, jp, tp = tiny_params(2)
     ours = _flat(TP.pack_inference_params(tp))
-    theirs = _flat(params_from_numpy(jax.tree.map(np.asarray, JP.pack_inference_params(jp))))
+    theirs = _flat(_jax_packed(jp))
     assert set(ours) == set(theirs)
-    assert {"text/layers/qkv_w", "text/layers/qkv_b", "text/layers/gateup_w"} <= set(ours)
+    assert {"text/layers/qkv_w", "text/layers/qkv_b", "text/layers/gateup_w", "vision/blocks/gateup_w"} <= set(ours)
     assert not {"text/layers/q_w", "text/layers/up_w"} & set(ours)
     for k, v in theirs.items():
         assert torch.equal(ours[k], v), k
@@ -158,14 +169,15 @@ def _assert_same_tree(ours, theirs):
 @pytest.mark.parametrize("packed", [False, True])
 def test_quantize_and_pack_match_jax_key_for_key(packed):
     """quantize_params (then the int8 branch of pack_inference_params) on the
-    bridged tree == the bridged JAX result; packing twice changes nothing."""
+    bridged tree == the bridged JAX result (packed: the tower in the port's
+    serving layout); packing twice changes nothing."""
     cfg, jp, tp = tiny_params(5)
     jq, tq = JP.quantize_params(jp), TP.quantize_params(tp)
     if packed:
-        jq, tq = JP.pack_inference_params(jq), TP.pack_inference_params(tq)
+        tq = TP.pack_inference_params(tq)
         assert TP.pack_inference_params(tq) is tq
     ours = _flat(tq)
-    _assert_same_tree(ours, _flat(params_from_numpy(jax.tree.map(np.asarray, jq))))
+    _assert_same_tree(ours, _flat(_jax_packed(jq) if packed else params_from_numpy(jax.tree.map(np.asarray, jq))))
     names = ("qkv_w", "o_w", "gateup_w", "down_w") if packed else ("q_w", "k_w", "v_w", "o_w", "gate_w", "up_w", "down_w")
     for n in names:
         assert ours[f"text/layers/{n}_q"].dtype == torch.int8 and ours[f"text/layers/{n}_s"].dtype == torch.float32

@@ -1214,3 +1214,80 @@ def test_trainer_with_default_args_trains_the_tower(dev, tmp_path):
                  if not (bool((before[n] == 1).all()) and float(exp_avg["vision.blocks." + n].abs().max()) > 0)]
     assert not unreached, f"tower block leaves that neither moved nor are bf16 ones reached by a gradient: {unreached}"
     assert len(unmoved) < len(before), "no tower block leaf moved"
+
+
+# ---------------------------------------------------------------------------
+# H12 swiglu and the packed vision tower (models/vision.py's serving layout)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rows,ff", [(4 * 2304, 3456), (333, 3456), (4 * 2304, 3424), (1, 8)])
+def test_swiglu_matches_plain(dev, rows, ff):
+    """H12 against its twin (fp32 SiLU and product, one rounding) at the
+    packed tower's 4 x 2304 rows, a ragged row count and the least width:
+    each value within one bf16 ulp of the twin's; two runs bit for bit."""
+    from padt_tpu_torch.ops import cuda_mlp
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    gu = _randn(g, (rows, 2 * ff), dev, scale=3.0)
+    n0 = cuda_mlp.launch_counts["swiglu"]
+    out, ref = cuda_mlp.swiglu(gu), cuda_mlp.swiglu_plain(gu)
+    torch.cuda.synchronize()
+    assert cuda_mlp.launch_counts["swiglu"] == n0 + 1 and out.shape == (rows, ff)
+    ulp = torch.exp2(torch.floor(torch.log2(ref.float().abs().clamp(min=2.0**-126))) - 7)
+    assert bool(((out.float() - ref.float()).abs() <= ulp).all()), _err(out, ref)
+    assert torch.equal(cuda_mlp.swiglu(gu), out)
+
+
+def test_swiglu_refuses_what_the_kernel_does_not_take(dev):
+    from padt_tpu_torch.ops import cuda_mlp
+
+    gu = torch.zeros((4, 32), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16"):
+        cuda_mlp.swiglu(gu.float())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        cuda_mlp.swiglu(gu[:, :24])
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_mlp.swiglu(torch.zeros((4, 64), device=dev, dtype=torch.bfloat16)[:, :32])
+    with pytest.raises(ValueError, match="grad"):
+        cuda_mlp.swiglu(gu.clone().requires_grad_(True))
+
+
+def test_packed_tower_runs_no_sm80_gemm(dev):
+    """PaDT-3B's tower (32 blocks, ff 3420 packed to 3424) at 4 x 2304
+    patches on the window-slot layout: under `torch.profiler` the packed
+    forward runs no kernel whose name holds `cutlass_80` or `align2`, and
+    H12 once a block; its outputs against the plain tower's within a
+    relative norm gap of 5e-2 (bf16, the biases' roundings differ, over 32
+    blocks)."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from padt_tpu_torch import padt_3b
+    from padt_tpu_torch.models import vision as V
+
+    vc = padt_3b().vision
+    g = torch.Generator(device=dev).manual_seed(3)
+    params = V.init_vision_params(vc, g, dev, torch.bfloat16)
+    for k in ("qkv_b", "proj_b", "gate_b", "up_b", "down_b"):
+        params["blocks"][k] = (0.1 * torch.randn(params["blocks"][k].shape, generator=g, device=dev)).to(torch.bfloat16)
+    packed = dict(params, blocks=V.pack_vision_blocks(params["blocks"]))
+    grids = [(1, 48, 48)] * 4
+    geo = vision_geometry(grids, 2304, window_slots=True)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    pix = (torch.rand((4, 2304, vc.patch_input_dim), generator=g, device=dev) * 2 - 1).to(torch.bfloat16)
+    args = [pix] + [t(a) for a in (geo.window_index, geo.inv_window_index, geo.seg_win, geo.seg_full, geo.hpos, geo.wpos)]
+    run = lambda p: V.vision_forward(p, vc, *args, pack_index=t(geo.pack_index))
+    with torch.no_grad():
+        plain, ours = run(params), run(packed)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(packed)
+            torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and not [n for n in names if "cutlass_80" in n or "align2" in n], sorted(set(names))
+    assert sum("swiglu_kernel" in n for n in names) == vc.depth
+    for a, b in ((ours[0], plain[0]), (ours[1], plain[1])):
+        gap = ((a.float() - b.float()).norm() / b.float().norm()).item()
+        assert gap <= 5e-2, gap
